@@ -15,8 +15,8 @@ import sys
 
 import numpy as np
 
-from ssi_tpu.checkpoint import SUFFIXES_TO_NOT_COPY, Checkpointer
-from ssi_tpu.constants import (
+from ssi_jax.checkpoint import SUFFIXES_TO_NOT_COPY, Checkpointer
+from ssi_jax.constants import (
     EXTENDED_MODELS_DIR,
     LLAMA_3_2_1B_BASE_DIR,
     LLAMA_3_2_CONFIG_RELPATH,
@@ -27,15 +27,15 @@ from ssi_tpu.constants import (
     LLAMA_EOS_TOKEN,
     SEED,
 )
-from ssi_tpu.extend import (
+from ssi_jax.extend import (
     extend_config,
     extend_embeddings,
     extend_generation_config,
     extend_params,
     extend_tiktoken,
 )
-from ssi_tpu.models.configs import MODEL_CONFIGS, get_model_config
-from ssi_tpu.tokenizer import setup_llama3_tokenizer
+from ssi_jax.models.configs import MODEL_CONFIGS, get_model_config
+from ssi_jax.tokenizer import setup_llama3_tokenizer
 
 logging.basicConfig(
     format="[%(asctime)s][%(name)s][%(levelname)s] - %(message)s",
@@ -149,6 +149,7 @@ def main(args: Namespace) -> None:
         args.output_dir / LLAMA_3_2_GENERATION_CONFIG_RELPATH,
         bos_token_id=special_tokens[LLAMA_BOS_TOKEN],
         eos_token_id=special_tokens[LLAMA_EOS_TOKEN],
+        base_vocab_size=llama_cfg.base_vocab_size_txt,
     )
 
     # Invariants (ref: scripts/extend_llama3_2.py:132-138)

@@ -13,9 +13,9 @@ import sys
 
 import yaml
 
-from ssi_tpu.config import compose, load_yaml
-from ssi_tpu.constants import SUPPORTED_DATASETS, TRAIN_CONFIG_FILENAME
-from ssi_tpu.generate import run_generation
+from ssi_jax.config import compose, load_yaml
+from ssi_jax.constants import SUPPORTED_DATASETS, TRAIN_CONFIG_FILENAME
+from ssi_jax.generate import run_generation
 
 logging.basicConfig(
     format="[%(asctime)s][%(name)s][%(levelname)s] - %(message)s",
@@ -31,7 +31,7 @@ CONF_DIR = Path(__file__).resolve().parent.parent / "conf"
 
 def main(argv: list[str]) -> None:
     cfg = compose(str(CONF_DIR), "generate", overrides=argv)
-    from ssi_tpu.train.metric_logging import configure_hydra_logging
+    from ssi_jax.train.metric_logging import configure_hydra_logging
 
     configure_hydra_logging(cfg)
 

@@ -3,7 +3,7 @@
 built (ref: plans/Feature - Standalone Sample-Wise Generation.md).
 
 Generate from an arbitrary prompt without a dataset config. Prompt input modes:
-raw text, raw token IDs, or a Jinja template (by name from ssi_tpu/templates or by
+raw text, raw token IDs, or a Jinja template (by name from ssi_jax/templates or by
 path) with variables. Lightweight argparse (no config dir needed); also importable
 (`generate_sample`).
 
@@ -61,11 +61,11 @@ def generate_sample(
     import jax
     import jax.numpy as jnp
 
-    from ssi_tpu.checkpoint import Checkpointer
-    from ssi_tpu.generate.engine import DecodeEngine, SamplingParams
-    from ssi_tpu.generate.templates import render_template
-    from ssi_tpu.models.configs import get_model_config
-    from ssi_tpu.tokenizer import setup_llama3_tokenizer
+    from ssi_jax.checkpoint import Checkpointer
+    from ssi_jax.generate.engine import DecodeEngine, SamplingParams
+    from ssi_jax.generate.templates import render_template
+    from ssi_jax.models.configs import get_model_config
+    from ssi_jax.tokenizer import setup_llama3_tokenizer
 
     model_dir = Path(model_dir)
     tokenizer, special_tokens = setup_llama3_tokenizer(
@@ -135,7 +135,7 @@ def parse_args() -> Namespace:
     group = parser.add_mutually_exclusive_group(required=True)
     group.add_argument("--text", type=str, help="Raw text prompt")
     group.add_argument("--token_ids", type=int, nargs="+", help="Pre-tokenized prompt ids")
-    group.add_argument("--template", type=str, help="Template name (ssi_tpu/templates) or .jinja path")
+    group.add_argument("--template", type=str, help="Template name (ssi_jax/templates) or .jinja path")
     parser.add_argument("--speech_tokens", type=int, nargs="*", default=None, help="DSU ids for the template")
     parser.add_argument("--var", action="append", default=[], metavar="KEY=VALUE", help="Extra template variables")
     parser.add_argument("--temperature", type=float, default=0.0)

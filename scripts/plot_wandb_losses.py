@@ -21,7 +21,7 @@ import matplotlib
 matplotlib.use("Agg")
 import matplotlib.pyplot as plt
 
-from ssi_tpu.constants import WANDB_ENTITY_DEFAULT, WANDB_PROJECT_DEFAULT
+from ssi_jax.constants import WANDB_ENTITY_DEFAULT, WANDB_PROJECT_DEFAULT
 
 logging.basicConfig(
     format="[%(asctime)s][%(name)s][%(levelname)s] - %(message)s",

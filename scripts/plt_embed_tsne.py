@@ -21,10 +21,10 @@ matplotlib.use("Agg")
 import matplotlib.pyplot as plt
 import numpy as np
 
-from ssi_tpu.config import compose
-from ssi_tpu.constants import SEED
-from ssi_tpu.models.configs import get_model_config
-from ssi_tpu.train.train_utils import get_token_type_ranges, resolve_n_dsus
+from ssi_jax.config import compose
+from ssi_jax.constants import SEED
+from ssi_jax.models.configs import get_model_config
+from ssi_jax.train.train_utils import get_token_type_ranges, resolve_n_dsus
 
 logging.basicConfig(
     format="[%(asctime)s][%(name)s][%(levelname)s] - %(message)s",
@@ -40,7 +40,7 @@ def load_embeddings(checkpoint_dir: Path) -> np.ndarray:
     """Read model.embed_tokens.weight straight from the safetensors shards."""
     from safetensors import safe_open
 
-    from ssi_tpu.checkpoint import discover_safetensor_files
+    from ssi_jax.checkpoint import discover_safetensor_files
 
     for fname in discover_safetensor_files(checkpoint_dir):
         with safe_open(str(checkpoint_dir / fname), framework="np") as f:

@@ -13,9 +13,9 @@ import logging
 from pathlib import Path
 import sys
 
-from ssi_tpu.config import compose, load_yaml
-from ssi_tpu.constants import TRAIN_CONFIG_FILENAME
-from ssi_tpu.serve import run_server
+from ssi_jax.config import compose, load_yaml
+from ssi_jax.constants import TRAIN_CONFIG_FILENAME
+from ssi_jax.serve import run_server
 
 logging.basicConfig(
     format="[%(asctime)s][%(name)s][%(levelname)s] - %(message)s",

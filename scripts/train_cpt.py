@@ -7,9 +7,9 @@ Usage: python scripts/train_cpt.py data=cpt/mls-hubert_large_ll60k-layer_22 [key
 import logging
 import sys
 
-from ssi_tpu.config import compose
-from ssi_tpu.train import Trainer
-from ssi_tpu.train.train_utils import resolve_n_dsus
+from ssi_jax.config import compose
+from ssi_jax.train import Trainer
+from ssi_jax.train.train_utils import resolve_n_dsus
 
 logging.basicConfig(
     format="[%(asctime)s][%(name)s][%(levelname)s] - %(message)s",
@@ -20,7 +20,7 @@ logging.basicConfig(
 
 def main(argv: list[str]) -> None:
     cfg = compose("conf", "cpt", overrides=argv)
-    from ssi_tpu.train.metric_logging import configure_hydra_logging
+    from ssi_jax.train.metric_logging import configure_hydra_logging
 
     configure_hydra_logging(cfg)
     resolve_n_dsus(cfg)

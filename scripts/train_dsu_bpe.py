@@ -5,7 +5,7 @@ Completes the reference's experiment-matrix compression axis ("using BPE to
 compress the speech tokens or not" — ref: plans/Checkpointing - Consolidated
 Plan.md:23,146-170 — planned, never implemented). Reads aligned rows from an
 HF dataset (same schema the CPT pipeline consumes), converts each row's speech
-tokens to the PUA string form via ``ssi_tpu.speech.dsu2pua``, trains byte-level
+tokens to the PUA string form via ``ssi_jax.speech.dsu2pua``, trains byte-level
 BPE with whole-sequence pieces (merges span adjacent DSUs — the point of
 compression), and writes a ``tokenizer.model``-format merges file plus a stats
 JSON with the achieved compression ratio.
@@ -13,7 +13,7 @@ JSON with the achieved compression ratio.
 The output merges file is loadable by the tokenizer stack (tiktoken or the
 native C++ core). NB compressed-DSU tokenizers must be loaded with a split
 pattern that does NOT isolate \\p{Co} characters, or the merges never fire;
-see ssi_tpu/tokenizer/bpe_train.py.
+see ssi_jax/tokenizer/bpe_train.py.
 
 Usage:
   python scripts/train_dsu_bpe.py out_dir --dataset <hf_or_json> --n-merges 4096 \\
@@ -28,8 +28,8 @@ import os
 from pathlib import Path
 import sys
 
-from ssi_tpu.speech import SPEECH_TOKENS_KEY, dsu2pua
-from ssi_tpu.tokenizer.bpe_train import compression_ratio, save_ranks, train_bpe
+from ssi_jax.speech import SPEECH_TOKENS_KEY, dsu2pua
+from ssi_jax.tokenizer.bpe_train import compression_ratio, save_ranks, train_bpe
 
 logging.basicConfig(
     format="[%(asctime)s][%(name)s][%(levelname)s] - %(message)s",
@@ -63,7 +63,7 @@ def parse_args() -> Namespace:
 
 
 def dsu_corpus(args: Namespace) -> list[str]:
-    from ssi_tpu.data import load_hf_dataset
+    from ssi_jax.data import load_hf_dataset
 
     kwargs = {"split": args.split, "streaming": True}
     if args.data_files:

@@ -15,9 +15,9 @@ from pathlib import Path
 from pprint import pformat
 import sys
 
-from ssi_tpu.constants import SUPPORTED_DATASETS
-from ssi_tpu.eval import english_normalizer, word_error_rate
-from ssi_tpu.utils import extract_texts_from_generations_jsonl, ref_from_hf_dataset
+from ssi_jax.constants import SUPPORTED_DATASETS
+from ssi_jax.eval import english_normalizer, word_error_rate
+from ssi_jax.utils import extract_texts_from_generations_jsonl, ref_from_hf_dataset
 
 logging.basicConfig(
     format="[%(asctime)s][%(name)s][%(levelname)s] - %(message)s",
@@ -79,7 +79,7 @@ def main(args: Namespace) -> None:
     reference = ref_from_hf_dataset(args.dataset, args.split, args.gt_transcript_colname)
     artifact = {}
     if args.normalizer == "whisper":
-        from ssi_tpu.eval.wer import spelling_mapping_fingerprint, suspected_unmapped_words
+        from ssi_jax.eval.wer import spelling_mapping_fingerprint, suspected_unmapped_words
 
         normalize = english_normalizer()
         generated = [normalize(text) for text in generated]

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """One-command WER-parity harness: generate over an MLS dev slice, score WER,
-and emit a reference-comparable artifact (VERDICT r2 item 3).
+and emit a reference-comparable artifact.
 
 The BASELINE target is a WER delta <= 0.1 vs the reference pipeline
 (vLLM generate -> whisper_normalizer -> jiwer; ref: scripts/generate.py +
@@ -53,14 +53,14 @@ def parse_args(argv: list[str]) -> tuple[argparse.Namespace, list[str]]:
 def main(argv: list[str]) -> None:
     args, overrides = parse_args(argv)
 
-    from ssi_tpu.eval import english_normalizer, load_spelling_mapping, word_error_rate
-    from ssi_tpu.utils import extract_texts_from_generations_jsonl, ref_from_hf_dataset
+    from ssi_jax.eval import english_normalizer, load_spelling_mapping, word_error_rate
+    from ssi_jax.utils import extract_texts_from_generations_jsonl, ref_from_hf_dataset
 
     if args.skip_generate is not None:
         gen_dir = args.skip_generate
     else:
         import scripts.generate as gen_script
-        from ssi_tpu.generate import run_generation
+        from ssi_jax.generate import run_generation
 
         gen_dir = _run_generate(gen_script, overrides, run_generation)
 
@@ -84,7 +84,7 @@ def main(argv: list[str]) -> None:
     if len(refs_raw) != len(hyps_raw):
         raise ValueError(f"{len(refs_raw)} references for {len(hyps_raw)} hypotheses")
 
-    from ssi_tpu.eval.wer import spelling_mapping_fingerprint, suspected_unmapped_words
+    from ssi_jax.eval.wer import spelling_mapping_fingerprint, suspected_unmapped_words
 
     normalize = english_normalizer()
     refs = [normalize(t) for t in refs_raw]
@@ -92,7 +92,7 @@ def main(argv: list[str]) -> None:
     wer = word_error_rate(refs, hyps)
 
     mapping = load_spelling_mapping()
-    # residual normalizer divergence, quantified per run (VERDICT r3 item 7):
+    # residual normalizer divergence, quantified per run:
     # post-normalization words that still look British-spelled but are absent
     # from the vendored map — each is a potential WER shift vs the reference's
     # hub-hosted mapping

@@ -1,0 +1,247 @@
+"""Generation subsystem: batched decode from HF ``step_N/`` checkpoint dirs.
+
+``run_generation(cfg)`` mirrors the reference generate flow
+(ref: scripts/generate.py:77-142): SFT dataset in inference mode -> batched decode
+-> HF/vLLM-compatible ``generations.jsonl`` consumable unchanged by the WER script.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+from pathlib import Path
+import time
+from typing import Any
+
+from ssi_jax.generate.engine import DecodeEngine, SamplingParams
+
+LOGGER = logging.getLogger(__name__)
+
+__all__ = ["DecodeEngine", "SamplingParams", "run_generation", "resolve_gen_output_dir"]
+
+
+def _serving_mesh(tp: int):
+    """Mesh for tensor-parallel serving (``tensor_parallel`` config key);
+    None for the single-device default."""
+    if tp <= 1:
+        return None
+    from ssi_jax.parallel import make_mesh
+
+    return make_mesh(dp=1, tp=tp)
+
+
+def resolve_gen_output_dir(cfg: Any) -> str:
+    """checkpoints/... -> generations/... path convention (ref: scripts/generate.py:34-56)."""
+    model_dir = Path(cfg.model).resolve(strict=True)
+    experiments_root_dir = Path(cfg.experiments_root_dir).resolve(strict=True)
+    if not model_dir.is_relative_to(experiments_root_dir):
+        raise ValueError(
+            f"Could not resolve null generation output directory. Model {cfg.model} not in "
+            f"{cfg.experiments_root_dir}. Specify a generation output directory in the config "
+            "or check your model path."
+        )
+    if "checkpoints" not in model_dir.parts:
+        raise ValueError(
+            "Could not resolve null generation output directory: expected the model dir to be "
+            "under a 'checkpoints' directory (e.g. .../checkpoints/step_2000)."
+        )
+    parts = list(model_dir.parts)
+    parts[len(parts) - 1 - parts[::-1].index("checkpoints")] = "generations"
+    gen_output_dir = str(Path(*parts).resolve(strict=False))
+    LOGGER.info(f"Resolved null generation output directory to: {gen_output_dir}")
+    return gen_output_dir
+
+
+def validate_generate_config(cfg: Any) -> None:
+    from ssi_jax.config import missing_keys
+
+    missing = missing_keys(cfg)
+    if missing:
+        raise ValueError(f"Missing keys in config: {missing}")
+    n = int(cfg.sampling_params.get("n", 1))
+    if n < 1:
+        raise ValueError(f"sampling_params.n must be >= 1 (got {n})")
+    if n != 1 and str(cfg.get("engine", "paged")) != "paged":
+        raise ValueError(
+            "sampling_params.n > 1 requires engine=paged (the dense engine decodes one sequence per prompt)"
+        )
+
+
+def run_generation(cfg: Any) -> Path:
+    """Batched generation over an SFT split; writes generations.jsonl + config snapshot."""
+    import jax
+    import numpy as np
+
+    from ssi_jax.checkpoint import Checkpointer
+    from ssi_jax.config import to_yaml
+    from ssi_jax.data.sft import SFTDataset
+    from ssi_jax.models.configs import get_model_config
+    from ssi_jax.tokenizer import setup_llama3_tokenizer
+    from ssi_jax.utils import hash_cfg
+
+    validate_generate_config(cfg)
+    if cfg.gen.get("output_dir") is None:
+        cfg.gen.output_dir = resolve_gen_output_dir(cfg)
+
+    tok_cfg = {k: v for k, v in cfg.tokenizer.items()}
+    tokenizer, special_tokens = setup_llama3_tokenizer(**tok_cfg)
+    special_int2str = {v: k for k, v in special_tokens.items()}
+    stop_token_ids = cfg.sampling_params.get("stop_token_ids")
+    if stop_token_ids is None:
+        stop_token_ids = list(tokenizer.stop_tokens)  # {eos, eom, eot} (ref: scripts/generate.py:87)
+
+    # Normalize the config BEFORE hashing so the cfg-hash subdir matches the snapshot.
+    if not cfg.data[cfg.gen.split].dataset.inference:
+        cfg.data[cfg.gen.split].dataset.inference = True
+        LOGGER.warning("Auto-setting dataset to inference mode.")
+
+    # HF repo ids are owner/name; local data-file types ("json", "csv") have no owner
+    gen_dataset_name = cfg.data[cfg.gen.split].dataset.source.split("/")[-1]
+    gen_output_dir = Path(cfg.gen.output_dir) / gen_dataset_name / cfg.gen.split
+    if cfg.gen.use_cfg_hash_subdir:
+        gen_output_dir = gen_output_dir / hash_cfg(cfg)
+    gen_output_dir.mkdir(parents=True, exist_ok=False)  # fail early if it already exists
+
+    # job start: hand logging from the framework-phase (hydra_logging) config
+    # over to the job's own config, file handler in the generation output dir
+    from ssi_jax.train.metric_logging import configure_job_logging
+
+    configure_job_logging(cfg, gen_output_dir, job_name="generate")
+
+    cfg_yaml = to_yaml(cfg, resolve=True)
+    with open(gen_output_dir / cfg.gen.output_config_filename, "x") as f:
+        f.write(cfg_yaml)
+    LOGGER.info(cfg_yaml)
+
+    # Model load: architecture from registry + speech extension arithmetic
+    model_cfg = get_model_config(cfg.get("model_config", "llama3_2_1b")).copy()
+    model_cfg.update_from_speech_cfg(cfg.speech)
+    checkpointer = Checkpointer(
+        checkpoint_dir=cfg.model,
+        output_dir=gen_output_dir / "_ckpt_scratch",
+        model_expectations=model_cfg.checkpoint_expectations,
+    )
+    import jax.numpy as jnp
+
+    dtype = jnp.bfloat16 if cfg.get("dtype", "bf16") == "bf16" else jnp.float32
+    params = checkpointer.load_params(model_cfg, dtype=dtype)
+    params = jax.device_put(params)
+
+    from ssi_jax.config import to_container
+
+    dataset_kwargs = to_container(cfg.data[cfg.gen.split].dataset, resolve=True)
+    dataset = SFTDataset(model_tokenizer=tokenizer, **dataset_kwargs)
+
+    sp = SamplingParams.from_cfg(cfg.sampling_params, stop_token_ids)
+
+    batch_size = int(cfg.get("batch_size", cfg.get("vllm_batch_size", 8)))
+    engine_kind = str(cfg.get("engine", "paged"))
+
+    # Tokenize the whole split ONCE: SFTDataset.__getitem__ re-runs the message
+    # transform + tokenizer on every access, so indexing rows again inside the
+    # generation loop would double host-side tokenization cost.
+    all_prompts = [dataset[i]["tokens"] for i in range(len(dataset))]
+
+    if engine_kind == "paged":
+        from ssi_jax.generate.paged_engine import PagedDecodeEngine
+
+        # One continuous-batching stream: n_slots rows advance together and
+        # finished rows are refilled from the queue — no partial-batch padding,
+        # no per-(batch,bucket) compile-cache growth.
+        max_prompt = max((len(t) for t in all_prompts), default=0)
+        engine = PagedDecodeEngine(
+            params, model_cfg, pad_id=tokenizer.pad_id,
+            n_slots=batch_size,
+            max_context=max_prompt + sp.max_tokens,
+            quantize=cfg.get("quantize_weights"),
+            speculate_k=int(cfg.get("speculate_k", 0) or 0),
+            prefix_caching=bool(cfg.get("prefix_caching", True)),
+            mesh=_serving_mesh(int(cfg.get("tensor_parallel", 1) or 1)),
+            prefill_chunk=cfg.get("prefill_chunk"),
+            admission_order=str(cfg.get("admission_order", "fifo") or "fifo"),
+        )
+    elif engine_kind == "dense":
+        if int(cfg.get("tensor_parallel", 1) or 1) > 1:
+            raise ValueError(
+                "tensor_parallel > 1 requires engine=paged (the dense engine runs "
+                "single-device; silently ignoring the mesh would under-use the slice)"
+            )
+        engine = DecodeEngine(params, model_cfg, pad_id=tokenizer.pad_id)
+    else:
+        raise ValueError(f"Unknown engine {engine_kind!r}; expected 'paged' or 'dense'")
+
+    decoding = dict(cfg.tokenizer_decoding.items()) if cfg.get("tokenizer_decoding") is not None else {}
+    observability = bool(cfg.get("observability", False))
+
+    n = len(dataset)
+    request_id = 0
+    key = jax.random.key(int(cfg.get("seed", 0)))
+    if observability and engine_kind == "paged" and n > 0:
+        # Observability promises steady-state decode metrics, but the paged
+        # chunk program does not survive the persistent compile cache across
+        # processes — a cold process would fold minutes of XLA/Mosaic compile
+        # into the first batch's wall time. Run two prompts through the engine
+        # once to absorb every compile; outputs are discarded (greedy decode is
+        # deterministic, so the timed pass reproduces them).
+        key, sub = jax.random.split(key)
+        t0 = time.perf_counter()
+        engine.generate_batch(all_prompts[: min(2, n)], sp, key=sub)
+        LOGGER.info(f"Warmup (compile) pass: {time.perf_counter() - t0:.1f}s")
+    # the paged engine schedules internally: hand it the whole request stream
+    step = n if (engine_kind == "paged" and n > 0) else batch_size
+    with open(gen_output_dir / cfg.gen.output_filename, "x") as f:
+        for start in range(0, n, step):
+            prompts = all_prompts[start : min(start + step, n)]
+            real = len(prompts)
+            if engine_kind == "dense":
+                # pad the final partial batch with a dummy row to keep the compiled shape
+                while len(prompts) < batch_size:
+                    prompts.append(prompts[0])
+            t0 = time.perf_counter()
+            key, sub = jax.random.split(key)
+            outs = engine.generate_batch(prompts, sp, key=sub)
+            dt = time.perf_counter() - t0
+            gen_tokens = sum(len(o["token_ids"]) for o in outs[: real * sp.n])
+
+            for i in range(real):
+                # the paged engine returns prompt-major / sequence-minor when
+                # sampling_params.n > 1 (vLLM: one record, n entries in outputs)
+                seq_outs = outs[i * sp.n : (i + 1) * sp.n]
+                record = {
+                    "request_id": str(request_id),
+                    "prompt": tokenizer.decode(list(prompts[i]), **decoding),
+                    "prompt_token_ids": list(map(int, prompts[i])),
+                    "finished": True,
+                    "outputs": [
+                        {
+                            "index": j,
+                            "text": tokenizer.decode(list(out["token_ids"]), **decoding),
+                            "token_ids": list(map(int, out["token_ids"])),
+                            "cumulative_logprob": out.get("cumulative_logprob"),
+                            "logprobs": out.get("logprobs"),
+                            "finish_reason": out["finish_reason"],
+                            "stop_reason": int(out["stop_reason"]) if out["stop_reason"] is not None else None,
+                            "stop_reason_text": special_int2str.get(out["stop_reason"])
+                            if out["stop_reason"] is not None else None,
+                        }
+                        for j, out in enumerate(seq_outs)
+                    ],
+                }
+                if observability:
+                    record["metrics"] = {
+                        "batch_duration_s": dt,
+                        "batch_generated_tokens": gen_tokens,
+                        "batch_tokens_per_second": gen_tokens / dt if dt > 0 else None,
+                    }
+                f.write(json.dumps(record, ensure_ascii=False) + "\n")
+                request_id += 1
+            LOGGER.info(
+                f"Batch {start // step}: {real} prompts, {gen_tokens} tokens in {dt:.2f}s "
+                f"({gen_tokens / dt:,.0f} tok/s)"
+            )
+    # scratch dir is only created by Checkpointer init; remove if empty
+    scratch = gen_output_dir / "_ckpt_scratch"
+    if scratch.exists() and not any(scratch.iterdir()):
+        scratch.rmdir()
+    LOGGER.info(f"Wrote outputs to {gen_output_dir!s}")
+    return gen_output_dir

@@ -29,7 +29,7 @@ def write_tiny_tokenizer(path: Path) -> Path:
 
 
 def tiny_config(n_dsus: int = TINY_N_DSUS, modality_tokens: bool = TINY_USE_MODALITY):
-    from ssi_tpu.models.configs import config_tiny_test
+    from ssi_jax.models.configs import config_tiny_test
 
     cfg = config_tiny_test.copy()
     cfg.n_dsus = n_dsus
@@ -47,9 +47,9 @@ def make_tiny_hf_checkpoint(model_dir: Path, n_dsus: int = TINY_N_DSUS, modality
     import jax.numpy as jnp
     from safetensors.numpy import save_file
 
-    from ssi_tpu.checkpoint.convert import internal_to_hf
-    from ssi_tpu.extend import extend_tiktoken
-    from ssi_tpu.models.llama3 import init_params
+    from ssi_jax.checkpoint.convert import internal_to_hf
+    from ssi_jax.extend import extend_tiktoken
+    from ssi_jax.models.llama3 import init_params
 
     model_dir = Path(model_dir)
     (model_dir / "original").mkdir(parents=True, exist_ok=True)
@@ -208,7 +208,7 @@ def base_train_cfg_dict(model_dir: Path, output_dir: Path, kind: str = "sft") ->
 
 
 def make_cfg(data: dict):
-    from ssi_tpu.config import Config
+    from ssi_jax.config import Config
 
     return Config(data)
 
@@ -234,7 +234,7 @@ def naive_greedy(params, cfg, prompt: list[int], max_tokens: int, buf_len: int =
     import jax
     import jax.numpy as jnp
 
-    from ssi_tpu.models.llama3 import forward, logits
+    from ssi_jax.models.llama3 import forward, logits
 
     need = len(prompt) + max_tokens
     while buf_len < need:

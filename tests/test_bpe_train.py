@@ -7,8 +7,8 @@ import sys
 import numpy as np
 import pytest
 
-from ssi_tpu.speech import dsu2pua
-from ssi_tpu.tokenizer.bpe_train import compression_ratio, save_ranks, train_bpe
+from ssi_jax.speech import dsu2pua
+from ssi_jax.tokenizer.bpe_train import compression_ratio, save_ranks, train_bpe
 
 
 def _dsu_corpus(n_rows=64, n_dsus=50, seed=0):
@@ -52,7 +52,7 @@ def test_saved_ranks_load_in_tiktoken_and_native(tmp_path):
     loaded = tiktoken.load.load_tiktoken_bpe(str(path))
     assert loaded == ranks
 
-    from ssi_tpu.native import bpe as native_bpe
+    from ssi_jax.native import bpe as native_bpe
 
     if native_bpe.available():
         nat = native_bpe.NativeEncoding(str(path))
@@ -122,9 +122,9 @@ def test_compressed_dsu_tokenizer_end_to_end(tmp_path):
     tokenizer -> load with the non-PUA pattern -> DSU streams encode shorter
     than 1 token/DSU, round-trip exactly, and new ids sit in the appended
     range (ready for embedding extension with n_dsus = appended count)."""
-    from ssi_tpu.tokenizer import CL100K_PATTERN, setup_llama3_tokenizer
+    from ssi_jax.tokenizer import CL100K_PATTERN, setup_llama3_tokenizer
     from tests import helpers
-    from ssi_tpu.tokenizer.bpe_train import merge_into_tokenizer
+    from ssi_jax.tokenizer.bpe_train import merge_into_tokenizer
 
     corpus = _dsu_corpus(n_rows=128, n_dsus=40, seed=7)
     ranks = train_bpe(corpus, 300, split_pattern=None)
@@ -138,7 +138,7 @@ def test_compressed_dsu_tokenizer_end_to_end(tmp_path):
     tok, _specials = setup_llama3_tokenizer(compressed, verbose=False)
     assert tok.pattern != CL100K_PATTERN  # default load = PUA contract
 
-    from ssi_tpu.tokenizer import Llama3Tokenizer
+    from ssi_jax.tokenizer import Llama3Tokenizer
 
     comp = Llama3Tokenizer(compressed, special_tokens=tok.special_tokens, pattern=CL100K_PATTERN)
     assert comp._native is None  # non-PUA pattern forces tiktoken
@@ -161,9 +161,9 @@ def test_merge_into_tokenizer_modality_tokens(tmp_path):
     last two base-vocab ranks (so dynamic specials line up with an extended
     model's config.json), and n_appended still counts only compression tokens
     (it is the embedding's n_dsus)."""
-    from ssi_tpu.speech import MODALITY_TOKEN_SPEECH, MODALITY_TOKEN_TEXT
-    from ssi_tpu.tokenizer import setup_llama3_tokenizer
-    from ssi_tpu.tokenizer.bpe_train import merge_into_tokenizer
+    from ssi_jax.speech import MODALITY_TOKEN_SPEECH, MODALITY_TOKEN_TEXT
+    from ssi_jax.tokenizer import setup_llama3_tokenizer
+    from ssi_jax.tokenizer.bpe_train import merge_into_tokenizer
     from tests import helpers
 
     corpus = _dsu_corpus(n_rows=64, n_dsus=24, seed=11)

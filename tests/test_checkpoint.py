@@ -6,7 +6,7 @@ import random
 import numpy as np
 import pytest
 
-from ssi_tpu.checkpoint import (
+from ssi_jax.checkpoint import (
     Checkpointer,
     check_outdir_not_in_ckptdir,
     discover_safetensor_files,
@@ -15,7 +15,7 @@ from ssi_tpu.checkpoint import (
     save_rng_states,
     unpack_state,
 )
-from ssi_tpu.constants import (
+from ssi_jax.constants import (
     CHECKPOINT_VERSION,
     CHECKPOINT_VERSION_KEY,
     CONSUMED_SAMPLES_KEY,
@@ -28,7 +28,7 @@ from ssi_tpu.constants import (
     SEED_KEY,
     TRAINING_HPARAMS_KEY,
 )
-from ssi_tpu.train.train_utils import resume_training_state
+from ssi_jax.train.train_utils import resume_training_state
 from tests import helpers
 
 
@@ -204,7 +204,7 @@ def test_orbax_save_overwrites_stale_uncommitted_dir(tmp_path):
     pytest.importorskip("orbax.checkpoint")
     import jax.numpy as jnp
 
-    from ssi_tpu.checkpoint.orbax_io import _DIR_PREFIX, save_opt_state
+    from ssi_jax.checkpoint.orbax_io import _DIR_PREFIX, save_opt_state
 
     opt_state = {"mu": {"w": jnp.arange(4, dtype=jnp.float32)}, "count": jnp.int32(3)}
     marker = save_opt_state(opt_state, tmp_path, step=7)

@@ -9,7 +9,7 @@ from pathlib import Path
 
 import pytest
 
-from ssi_tpu.config import (
+from ssi_jax.config import (
     MISSING,
     Config,
     InterpolationError,
@@ -82,12 +82,12 @@ def test_missing_marker_raises_on_access():
 
 
 def test_env_resolver(monkeypatch):
-    monkeypatch.setenv("SSI_TPU_HOME", "/custom/home")
+    monkeypatch.setenv("SSI_JAX_HOME", "/custom/home")
     cfg = compose(str(CONF), "cpt", overrides=["data=cpt/mls-focalcodec"])
     assert cfg.extended_models_dir == "/custom/home/models/extended"
-    monkeypatch.delenv("SSI_TPU_HOME")
+    monkeypatch.delenv("SSI_JAX_HOME")
     cfg2 = compose(str(CONF), "cpt", overrides=["data=cpt/mls-focalcodec"])
-    assert cfg2.extended_models_dir.startswith("/root/ssi_tpu_home")
+    assert cfg2.extended_models_dir.startswith("ssi_jax_home/")
 
 
 def test_unknown_interpolation_errors():
@@ -138,13 +138,13 @@ def test_job_logging_applied_at_runtime(tmp_path):
     per-run file handler through logging.config.dictConfig."""
     import logging
 
-    from ssi_tpu.train.metric_logging import configure_job_logging
+    from ssi_jax.train.metric_logging import configure_job_logging
 
     cfg = compose(str(CONF), "cpt", overrides=["data=cpt/mls-hubert_large_ll60k-layer_22"])
     run_dir = tmp_path / "run"
     configure_job_logging(cfg, run_dir, job_name="cpt")
     try:
-        logging.getLogger("ssi_tpu.test_job_logging").info("hello from dictConfig")
+        logging.getLogger("ssi_jax.test_job_logging").info("hello from dictConfig")
         logging.shutdown()
         log_file = run_dir / "cpt.log"
         assert log_file.is_file()
@@ -179,12 +179,12 @@ def test_hydra_logging_applied_at_runtime(capsys):
     frames composition/startup messages (framework-phase logging)."""
     import logging
 
-    from ssi_tpu.train.metric_logging import configure_hydra_logging
+    from ssi_jax.train.metric_logging import configure_hydra_logging
 
     cfg = compose(str(CONF), "cpt", overrides=["data=cpt/mls-hubert_large_ll60k-layer_22"])
     try:
         configure_hydra_logging(cfg)
-        logging.getLogger("ssi_tpu.test_hydra_logging").info("composed ok")
+        logging.getLogger("ssi_jax.test_hydra_logging").info("composed ok")
         out = capsys.readouterr().out
         assert "HYDRA" in out and "composed ok" in out  # tolerate colorlog escapes around the tag
         # `none` and composer-less configs are no-ops
@@ -202,7 +202,7 @@ def test_extract_wandb_run_cfg_duck_typed():
     import json
     from types import SimpleNamespace
 
-    from ssi_tpu.utils import extract_wandb_run_cfg, sanitize_wandb_run_json_config
+    from ssi_jax.utils import extract_wandb_run_cfg, sanitize_wandb_run_json_config
 
     raw = {
         "optimizer": {"desc": None, "value": {"lr": 2e-4}},

@@ -7,14 +7,14 @@ reproducibility, index/epoch sensitivity, order independence, span invariants.
 import numpy as np
 import pytest
 
-from ssi_tpu.data.cpt import CompletionSequenceType, TextCompletionDataset, get_span_idxs_binomial, interleave
-from ssi_tpu.speech import (
+from ssi_jax.data.cpt import CompletionSequenceType, TextCompletionDataset, get_span_idxs_binomial, interleave
+from ssi_jax.speech import (
     ALIGNMENT_END_TIME_KEY,
     ALIGNMENT_START_TIME_KEY,
     SPEECH_TOKENS_KEY,
     TOKENIZED_KEY,
 )
-from ssi_tpu.tokenizer import setup_llama3_tokenizer
+from ssi_jax.tokenizer import setup_llama3_tokenizer
 from tests import helpers
 
 KEYS = {
@@ -96,7 +96,7 @@ def _make_ds(tokenizer_path, seq_type, use_modality_tokens=False):
 
 
 def test_all_declared_sequence_types_usable(tiny_extended_tokenizer_path, synthetic_data):
-    """All six enum values construct (VERDICT r2 item 6); the reference left
+    """All six enum values construct; the reference left
     dsu_only/text_only/alternating declared-unimplemented (ref: ssi/data/cpt.py:36-38)."""
     for seq_type in CompletionSequenceType:
         if seq_type is CompletionSequenceType.INTERLEAVED:

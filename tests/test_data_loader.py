@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from ssi_tpu.data import Loader, Sampler, padded_collate_sft
+from ssi_jax.data import Loader, Sampler, padded_collate_sft
 
 
 def rows(lengths):
@@ -80,8 +80,8 @@ def test_alpaca_debug_loader(tiny_tokenizer_path, monkeypatch):
     """Reference debug helper parity (ref: ssi/data/__init__.py:213-231)."""
     import datasets as hfd
 
-    import ssi_tpu.data as dm
-    from ssi_tpu.tokenizer import setup_llama3_tokenizer
+    import ssi_jax.data as dm
+    from ssi_jax.tokenizer import setup_llama3_tokenizer
 
     tiny_tokenizer, _ = setup_llama3_tokenizer(path=str(tiny_tokenizer_path), max_seq_len=128)
 
@@ -104,9 +104,9 @@ def test_cpt_additional_keys_flow_to_batches(synthetic_data, tiny_extended_token
     (the reference DECLARES this on the CPT collate but its dataset crashes on
     the kwarg; previously our CPT popped the key but the collate still
     expected it -> KeyError at the first batch)."""
-    from ssi_tpu.config import Config
-    from ssi_tpu.data import setup_text_completion_data
-    from ssi_tpu.tokenizer import setup_llama3_tokenizer
+    from ssi_jax.config import Config
+    from ssi_jax.data import setup_text_completion_data
+    from ssi_jax.tokenizer import setup_llama3_tokenizer
 
     tok, _ = setup_llama3_tokenizer(path=str(tiny_extended_tokenizer_path), max_seq_len=64)
     cfg = Config(

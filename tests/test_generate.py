@@ -8,8 +8,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ssi_tpu.generate.engine import DecodeEngine, SamplingParams
-from ssi_tpu.models.llama3 import forward, init_params, logits
+from ssi_jax.generate.engine import DecodeEngine, SamplingParams
+from ssi_jax.models.llama3 import forward, init_params, logits
 from tests import helpers
 
 
@@ -91,9 +91,9 @@ def test_temperature_sampling_reproducible(setup):
 
 def test_run_generation_end_to_end(tmp_path, synthetic_data):
     """Full generate flow: step dir -> generations.jsonl consumable by the WER tools."""
-    from ssi_tpu.config import Config
-    from ssi_tpu.generate import run_generation
-    from ssi_tpu.utils import extract_texts_from_generations_jsonl
+    from ssi_jax.config import Config
+    from ssi_jax.generate import run_generation
+    from ssi_jax.utils import extract_texts_from_generations_jsonl
 
     model_dir = helpers.make_tiny_hf_checkpoint(tmp_path / "model")
     cfg = Config(
@@ -178,8 +178,8 @@ def test_run_generation_end_to_end(tmp_path, synthetic_data):
 
 
 def test_render_templates():
-    from ssi_tpu.generate.templates import list_templates, render_template
-    from ssi_tpu.speech import MODALITY_TOKEN_SPEECH, MODALITY_TOKEN_TEXT, dsu2pua
+    from ssi_jax.generate.templates import list_templates, render_template
+    from ssi_jax.speech import MODALITY_TOKEN_SPEECH, MODALITY_TOKEN_TEXT, dsu2pua
 
     names = list_templates()
     assert {"basic", "capital_of_france", "empty", "raven_poe", "repeat_this_modality_switch"} <= set(names)
@@ -198,8 +198,8 @@ def test_run_generation_int8_config_path(tmp_path, synthetic_data):
     the flow still produces schema-valid generations."""
     import copy
 
-    from ssi_tpu.config import Config
-    from ssi_tpu.generate import run_generation
+    from ssi_jax.config import Config
+    from ssi_jax.generate import run_generation
 
     model_dir = helpers.make_tiny_hf_checkpoint(tmp_path / "model")
     cfg = Config(
@@ -254,8 +254,8 @@ def test_run_generation_speculative_config_path(tmp_path, synthetic_data):
     (lossless greedy speculation)."""
     import copy
 
-    from ssi_tpu.config import Config
-    from ssi_tpu.generate import run_generation
+    from ssi_jax.config import Config
+    from ssi_jax.generate import run_generation
 
     model_dir = helpers.make_tiny_hf_checkpoint(tmp_path / "model")
     base = {

@@ -4,7 +4,7 @@ import math
 
 import pytest
 
-from ssi_tpu.train.geometry import TrainingGeometry
+from ssi_jax.train.geometry import TrainingGeometry
 from tests.helpers import make_cfg
 
 

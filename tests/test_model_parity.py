@@ -13,8 +13,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ssi_tpu.checkpoint.convert import expected_hf_keys, hf_to_internal, internal_to_hf
-from ssi_tpu.models.llama3 import forward, forward_slots, init_kv_cache, init_params, logits
+from ssi_jax.checkpoint.convert import expected_hf_keys, hf_to_internal, internal_to_hf
+from ssi_jax.models.llama3 import forward, forward_slots, init_kv_cache, init_params, logits
 from tests import helpers
 
 

@@ -1,10 +1,10 @@
-"""Two-process distributed training validation (VERDICT r1 item 2).
+"""Two-process distributed training validation.
 
 Spawns two REAL OS processes, each with one CPU device, connected through
 ``jax.distributed`` (coordinator on localhost). Each process runs the full
 Trainer with its own Sampler(rank) data shard; the jitted step consumes the
 globally-assembled batch, so gradients sync through XLA collectives exactly as
-on a TPU pod. The per-step loss stream must:
+in a multi-node run. The per-step loss stream must:
 
 - be identical (bitwise) across the two ranks (they compute the same global
   program), and
@@ -106,8 +106,8 @@ def test_two_process_training_matches_single_process(workdir, overlap_results, m
     # and the window loss/grads are row-order-invariant sums
     import datasets as hfd
 
-    import ssi_tpu.data as data_mod
-    from ssi_tpu.train import Trainer
+    import ssi_jax.data as data_mod
+    from ssi_jax.train import Trainer
 
     rows = [json.loads(line) for line in open(workdir / "data.jsonl")]
     monkeypatch.setattr(data_mod, "load_hf_dataset", lambda source, **kw: hfd.Dataset.from_list(rows))

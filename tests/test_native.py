@@ -13,7 +13,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 
-from ssi_tpu.native import safetensors_io as stio
+from ssi_jax.native import safetensors_io as stio
 
 pytestmark = pytest.mark.skipif(not stio.available(), reason="no C++ toolchain")
 
@@ -148,12 +148,12 @@ def test_corrupt_files_rejected(tmp_path):
 
 
 def test_checkpoint_backend_env_switch(monkeypatch):
-    from ssi_tpu.checkpoint import _safetensors_backend
+    from ssi_jax.checkpoint import _safetensors_backend
 
     native_open, native_save = _safetensors_backend()
     assert native_open is stio.safe_open and native_save is stio.save_file
 
-    monkeypatch.setenv("SSI_TPU_NATIVE_SAFETENSORS", "0")
+    monkeypatch.setenv("SSI_JAX_NATIVE_SAFETENSORS", "0")
     up_open, up_save = _safetensors_backend()
     import safetensors
     import safetensors.numpy

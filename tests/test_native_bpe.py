@@ -13,8 +13,8 @@ import random
 
 import pytest
 
-from ssi_tpu.native import bpe as native_bpe
-from ssi_tpu.tokenizer import CL100K_PATTERN_PUA
+from ssi_jax.native import bpe as native_bpe
+from ssi_jax.tokenizer import CL100K_PATTERN_PUA
 
 pytestmark = pytest.mark.skipif(not native_bpe.available(), reason="no C++ toolchain")
 
@@ -181,12 +181,12 @@ def test_tokenizer_auto_backend_matches_tiktoken(tmp_path, monkeypatch):
     sys.path.insert(0, "tests")
     import helpers
 
-    from ssi_tpu.tokenizer import setup_llama3_tokenizer
+    from ssi_jax.tokenizer import setup_llama3_tokenizer
 
     path = helpers.write_tiny_tokenizer(tmp_path / "tokenizer.model")
     tok_auto, _ = setup_llama3_tokenizer(path, verbose=False)
     assert tok_auto._native is not None  # toolchain present -> native core active
-    monkeypatch.setenv("SSI_TPU_NATIVE_BPE", "0")
+    monkeypatch.setenv("SSI_JAX_NATIVE_BPE", "0")
     tok_tt, _ = setup_llama3_tokenizer(path, verbose=False)
     assert tok_tt._native is None
     for s in ["hello world", "  mixed 123 ", "a'ſb"]:

@@ -6,9 +6,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ssi_tpu.constants import CROSS_ENTROPY_IGNORE_IDX
-from ssi_tpu.ops.attention import xla_attention
-from ssi_tpu.ops.cross_entropy import cross_entropy_sum_and_count, fused_cross_entropy
+from ssi_jax.constants import CROSS_ENTROPY_IGNORE_IDX
+from ssi_jax.ops.attention import xla_attention
+from ssi_jax.ops.cross_entropy import cross_entropy_sum_and_count, fused_cross_entropy
 
 
 def naive_ce_sum(hidden, embed, labels):
@@ -89,7 +89,7 @@ def test_xla_attention_matches_naive_gqa():
 def test_adamw_matches_torch():
     """First-party AdamW vs torch.optim.AdamW over several steps."""
     torch = pytest.importorskip("torch")
-    from ssi_tpu.train.optimizer import AdamWConfig, adamw_update, init_opt_state
+    from ssi_jax.train.optimizer import AdamWConfig, adamw_update, init_opt_state
 
     rng = np.random.default_rng(5)
     w0 = rng.standard_normal((4, 3)).astype(np.float32)
@@ -113,7 +113,7 @@ def test_adamw_matches_torch():
 
 
 def test_clip_by_global_norm_matches_torch_semantics():
-    from ssi_tpu.train.optimizer import clip_by_global_norm, global_norm
+    from ssi_jax.train.optimizer import clip_by_global_norm, global_norm
 
     tree = {"a": jnp.asarray([3.0, 4.0])}  # norm 5
     clipped, norm = clip_by_global_norm(tree, 1.0)
@@ -129,7 +129,7 @@ def test_clip_by_global_norm_matches_torch_semantics():
 def test_stochastic_rounding_preserves_small_updates():
     """bf16 moments with RTN freeze when updates are below the bf16 ulp; stochastic
     rounding keeps the expected value moving (ROADMAP quality item)."""
-    from ssi_tpu.train.optimizer import AdamWConfig, adamw_update, init_opt_state
+    from ssi_jax.train.optimizer import AdamWConfig, adamw_update, init_opt_state
 
     # nu update per step is (1-b2)*g^2 = 1e-3 * 1.0; against a stored nu of 1.0
     # that's ~1/4 of the bf16 ulp (2^-8) -> RTN drops it every step.

@@ -1,6 +1,6 @@
 """Packed-dataset tests: layout invariants, loss equivalence, trainer integration.
 
-Packing is a TPU-first extension the reference only planned
+Packing is an extension the reference only planned
 (ref: plans/Feature - Packed Dataset Support.md; ssi/data/__init__.py:69,106).
 """
 
@@ -10,8 +10,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ssi_tpu.constants import CROSS_ENTROPY_IGNORE_IDX
-from ssi_tpu.data.packing import PackedDataset, padded_collate_packed
+from ssi_jax.constants import CROSS_ENTROPY_IGNORE_IDX
+from ssi_jax.data.packing import PackedDataset, padded_collate_packed
 from tests import helpers
 
 PAD = 99
@@ -87,8 +87,8 @@ def test_oversized_sample_dropped_or_raises():
 
 def test_packed_loss_equals_unpacked_sum():
     """Sum-NLL over a pack == sum of per-sample NLLs computed separately."""
-    from ssi_tpu.models.llama3 import init_params
-    from ssi_tpu.train.step import make_loss_fn
+    from ssi_jax.models.llama3 import init_params
+    from ssi_jax.train.step import make_loss_fn
 
     cfg = helpers.tiny_config()
     params = init_params(cfg, jax.random.key(0), dtype=jnp.float32)
@@ -133,7 +133,7 @@ def test_repack_per_epoch_keeps_length():
 
 
 def test_packed_trainer_end_to_end(tmp_path, synthetic_data):
-    from ssi_tpu.train import Trainer
+    from ssi_jax.train import Trainer
 
     model_dir = helpers.make_tiny_hf_checkpoint(tmp_path / "model")
     cfg_dict = helpers.base_train_cfg_dict(model_dir, tmp_path / "ckpts", kind="cpt")
@@ -152,11 +152,11 @@ def test_packed_trainer_end_to_end(tmp_path, synthetic_data):
 
 
 # ---------------------------------------------------------------------------
-# WindowedPackedDataset (streaming-scale packing, VERDICT r2 item 4)
+# WindowedPackedDataset (streaming-scale packing)
 # ---------------------------------------------------------------------------
 
 def test_windowed_matches_eager_when_window_covers_dataset():
-    from ssi_tpu.data.packing import WindowedPackedDataset
+    from ssi_jax.data.packing import WindowedPackedDataset
 
     rows = make_rows([5, 7, 4, 10, 3, 6, 2, 8])
     eager = PackedDataset(ListDataset(rows), max_seq_len=16, pad_id=PAD)
@@ -168,7 +168,7 @@ def test_windowed_matches_eager_when_window_covers_dataset():
 
 
 def test_windowed_o_window_memory_and_locality():
-    from ssi_tpu.data.packing import WindowedPackedDataset
+    from ssi_jax.data.packing import WindowedPackedDataset
 
     rows = make_rows([4] * 64)
     ds = WindowedPackedDataset(ListDataset(rows), max_seq_len=16, pad_id=PAD, window=8)
@@ -181,7 +181,7 @@ def test_windowed_o_window_memory_and_locality():
 
 
 def test_windowed_deterministic_and_epoch_sensitive_shuffle():
-    from ssi_tpu.data.packing import WindowedPackedDataset
+    from ssi_jax.data.packing import WindowedPackedDataset
 
     rows = make_rows([4] * 64)
     a = WindowedPackedDataset(ListDataset(rows), max_seq_len=16, pad_id=PAD, window=8, shuffle=True, seed=7)
@@ -202,7 +202,7 @@ def test_windowed_deterministic_and_epoch_sensitive_shuffle():
 
 
 def test_windowed_clamps_ragged_windows():
-    from ssi_tpu.data.packing import WindowedPackedDataset
+    from ssi_jax.data.packing import WindowedPackedDataset
 
     # windows pack to differing counts; all clamp/cycle to the calibration count
     rows = make_rows([10, 10, 3, 3, 3, 3, 14, 2])
@@ -216,7 +216,7 @@ def test_windowed_partial_tail_is_prorated_not_inflated():
     """A final partial window must get a prorated pack quota: 65 samples at
     window=8 leaves a 1-sample tail, which must contribute ~1/8 of a window's
     packs (here 1), not be cycle-duplicated up to the full quota."""
-    from ssi_tpu.data.packing import WindowedPackedDataset
+    from ssi_jax.data.packing import WindowedPackedDataset
 
     rows = make_rows([4] * 65)
     ds = WindowedPackedDataset(ListDataset(rows), max_seq_len=16, pad_id=PAD, window=8)
@@ -243,7 +243,7 @@ def test_windowed_partial_tail_is_prorated_not_inflated():
 
 
 def test_windowed_packed_trainer_end_to_end(tmp_path, synthetic_data):
-    from ssi_tpu.train import Trainer
+    from ssi_jax.train import Trainer
 
     model_dir = helpers.make_tiny_hf_checkpoint(tmp_path / "model")
     cfg_dict = helpers.base_train_cfg_dict(model_dir, tmp_path / "ckpts", kind="cpt")

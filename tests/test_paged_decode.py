@@ -11,9 +11,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ssi_tpu.generate.engine import DecodeEngine, SamplingParams
-from ssi_tpu.generate.paged_engine import PagedDecodeEngine
-from ssi_tpu.models.llama3 import forward, init_params, logits
+from ssi_jax.generate.engine import DecodeEngine, SamplingParams
+from ssi_jax.generate.paged_engine import PagedDecodeEngine
+from ssi_jax.models.llama3 import forward, init_params, logits
 from tests import helpers
 
 
@@ -150,56 +150,10 @@ def test_sampling_with_penalties_runs(setup):
         assert np.isfinite(out["cumulative_logprob"])
 
 
-def test_pallas_kernel_parity_interpret(setup):
-    """Fused paged_attention_pallas (interpret) == write_token_kv + gather path."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ssi_tpu.generate.paged import init_pools, paged_attention, write_token_kv
-    from ssi_tpu.generate.paged_pallas import paged_attention_pallas
-
-    cfg, params = setup
-    rng = np.random.default_rng(3)
-    slots, ps, max_pages, n_pages = 4, 8, 4, 32
-    pools = init_pools(cfg, n_pages, ps, dtype=jnp.float32)
-    kp = jnp.asarray(rng.standard_normal(pools["k"].shape), jnp.float32)
-    vp = jnp.asarray(rng.standard_normal(pools["v"].shape), jnp.float32)
-    q = jnp.asarray(rng.standard_normal((slots, cfg.num_heads, cfg.head_dim)), jnp.float32)
-    k_new = jnp.asarray(rng.standard_normal((slots, cfg.num_kv_heads, cfg.head_dim)), jnp.float32)
-    v_new = jnp.asarray(rng.standard_normal((slots, cfg.num_kv_heads, cfg.head_dim)), jnp.float32)
-    # layer-1 physical rows: a permuted page table with ragged lengths
-    logical = rng.choice(n_pages, (slots, max_pages), replace=False).astype(np.int32)
-    phys = jnp.asarray(1 * n_pages + logical)
-    attn_lens = jnp.asarray([1, ps, 2 * ps - 3, 4 * ps], jnp.int32)  # incl. new token
-    active = jnp.asarray([True, True, True, False])
-    trash = kp.shape[0] - 1
-
-    pre = attn_lens - 1  # cache length before the incoming token
-    logical_ids = jnp.take_along_axis(jnp.asarray(logical), (pre // ps)[:, None], axis=1)[:, 0]
-    offsets = pre % ps
-    kp_ref = write_token_kv(kp, k_new, 1 * n_pages + logical_ids, offsets, active)
-    vp_ref = write_token_kv(vp, v_new, 1 * n_pages + logical_ids, offsets, active)
-    ref = paged_attention(q, kp_ref, vp_ref, phys, attn_lens)
-
-    write_rows = jnp.where(active, 1 * n_pages + logical_ids, trash)
-    with pltpu.force_tpu_interpret_mode():
-        got, kp_out, vp_out = paged_attention_pallas(
-            q, kp, vp, phys, attn_lens,
-            k_new=k_new, v_new=v_new, write_rows=write_rows, interpret=True,
-        )
-    # active rows of the attention output match (inactive slots are masked by
-    # the engine upstream; their trash-page write makes their attn garbage)
-    np.testing.assert_allclose(
-        np.asarray(got)[:3], np.asarray(ref)[:3], rtol=2e-5, atol=2e-5
-    )
-    # pool contents identical everywhere except the trash row
-    np.testing.assert_array_equal(np.asarray(kp_out)[:-1], np.asarray(kp_ref)[:-1])
-    np.testing.assert_array_equal(np.asarray(vp_out)[:-1], np.asarray(vp_ref)[:-1])
-
-
 def test_failed_admission_releases_pages(setup):
     """A prompt that cannot be admitted must not strand its partial page
     allocation on a req=None slot (the pool would shrink permanently)."""
-    from ssi_tpu.generate.engine import SamplingParams
+    from ssi_jax.generate.engine import SamplingParams
 
     cfg, params = setup
     # pool of 6 pages, page_size 8: a 4-page prompt + a 2-page prompt can
@@ -221,7 +175,7 @@ def test_scheduler_fuzz_matches_dense(setup, seed):
     must match the dense engine bitwise, every page must return to the free
     list, and the run must terminate (the livelock class this guards against
     was found by exactly such a workload)."""
-    from ssi_tpu.generate.engine import DecodeEngine, SamplingParams
+    from ssi_jax.generate.engine import DecodeEngine, SamplingParams
 
     cfg, params = setup
     rng = np.random.default_rng(seed)
@@ -254,8 +208,8 @@ def test_scheduler_fuzz_matches_dense(setup, seed):
 def test_int8_weight_only_decode(setup):
     """Weight-only int8: engine runs end-to-end, dequantized logits stay close
     to bf16 (per-channel symmetric error bound), outputs share the schema."""
-    from ssi_tpu.generate.engine import SamplingParams
-    from ssi_tpu.generate.quant import matmul, quantize_layer_weights_int8
+    from ssi_jax.generate.engine import SamplingParams
+    from ssi_jax.generate.quant import matmul, quantize_layer_weights_int8
 
     cfg, params = setup
     qparams = quantize_layer_weights_int8(params)
@@ -283,8 +237,7 @@ def test_int8_weight_only_decode(setup):
 
 
 def test_bad_page_size_rejected(setup):
-    """page_size must be a multiple of the Pallas token-write RMW window (8);
-    smaller pages would DMA past the page's sublane extent silently on TPU."""
+    """page_size must be a positive multiple of 8 (prompt-bucket alignment)."""
     cfg, params = setup
     with pytest.raises(ValueError, match="multiple of 8"):
         make_engine(params, cfg, page_size=4, prompt_bucket=8)
@@ -316,32 +269,6 @@ def test_exception_mid_run_releases_pool(setup):
     engine._chunk_fn = orig
     again = engine.generate_batch(prompts, sp)
     assert [o["token_ids"] for o in again] == [o["token_ids"] for o in expected]
-
-
-def test_flash_prefill_parity_interpret(setup):
-    """prefill_prompts with the flash kernel (interpret) writes the same pages
-    as the XLA gather path — the TPU engine prefills through flash_attention."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ssi_tpu.generate.paged import init_pools, prefill_prompts
-
-    cfg, params = setup
-    rng = np.random.default_rng(5)
-    ps, n_pages, bucket, g = 8, 16, 16, 2
-    tokens = jnp.asarray(rng.integers(0, cfg.vocab_size, (g, bucket)), jnp.int32)
-    page_ids = jnp.asarray([[0, 1], [2, 3]], jnp.int32)
-
-    ref = prefill_prompts(
-        params, tokens, cfg, init_pools(cfg, n_pages, ps, dtype=jnp.float32),
-        page_ids, n_pages=n_pages, attn_impl="gather",
-    )
-    with pltpu.force_tpu_interpret_mode():
-        got = prefill_prompts(
-            params, tokens, cfg, init_pools(cfg, n_pages, ps, dtype=jnp.float32),
-            page_ids, n_pages=n_pages, attn_impl="pallas",
-        )
-    np.testing.assert_allclose(np.asarray(got["k"]), np.asarray(ref["k"]), rtol=2e-5, atol=2e-5)
-    np.testing.assert_allclose(np.asarray(got["v"]), np.asarray(ref["v"]), rtol=2e-5, atol=2e-5)
 
 
 def test_last_stats_contract(setup):
@@ -654,88 +581,6 @@ def test_spec_decode_streaming_refills(setup):
     for prompt, out in zip(prompts, outs):
         assert out["token_ids"] == naive_greedy(params, cfg, prompt, 6)
     assert len(engine._free_pages) + len(engine._cache_lru) == engine.n_pages
-
-
-def test_pallas_multi_kernel_parity_interpret(setup):
-    """Fused T-token verification kernel (interpret) == per-token scatter +
-    gather-path reference, across window-spanning alignments: hist_len mid-
-    window (drafts span two 8-row windows), 8-aligned, page-boundary-crossing,
-    and an inactive slot (no writes, output ignored)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ssi_tpu.generate.paged import init_pools, paged_attention_multi
-    from ssi_tpu.generate.paged_pallas import WRITE_WIN, paged_attention_pallas_multi
-
-    cfg, params = setup
-    rng = np.random.default_rng(8)
-    slots, ps, max_pages, n_pages, t_q = 4, 8, 6, 48, 4
-    pools = init_pools(cfg, n_pages, ps, dtype=jnp.float32)
-    kp = jnp.asarray(rng.standard_normal(pools["k"].shape), jnp.float32)
-    vp = jnp.asarray(rng.standard_normal(pools["v"].shape), jnp.float32)
-    q = jnp.asarray(rng.standard_normal((slots, t_q, cfg.num_heads, cfg.head_dim)), jnp.float32)
-    k_new = jnp.asarray(rng.standard_normal((slots, t_q, cfg.num_kv_heads, cfg.head_dim)), jnp.float32)
-    v_new = jnp.asarray(rng.standard_normal((slots, t_q, cfg.num_kv_heads, cfg.head_dim)), jnp.float32)
-    logical = np.stack([rng.choice(n_pages, max_pages, replace=False) for _ in range(slots)]).astype(np.int32)
-    base = 1 * n_pages  # layer-1 rows
-    phys = jnp.asarray(base + logical)
-    # hist 5: drafts at 5..8 span window [0,8) AND window [8,16) (page crossing
-    # at ps=8); hist 8: aligned start; hist 2*ps-3: crossing; hist 3*ps: aligned
-    hist = jnp.asarray([5, ps, 2 * ps - 3, 3 * ps], jnp.int32)
-    active = jnp.asarray([True, True, True, False])
-    cap = jnp.full((slots,), max_pages * ps, jnp.int32)  # ample: all tokens persist
-    trash = kp.shape[0] - 1
-
-    # reference: per-token scatter + gather attention (the spec XLA path)
-    positions = hist[:, None] + jnp.arange(t_q)[None, :]
-    logical_ids = jnp.take_along_axis(jnp.asarray(logical), positions // ps, axis=1)
-    offs = positions % ps
-    rows_ref = jnp.where(active[:, None], base + logical_ids, trash)
-    kp_ref, vp_ref = kp, vp
-    for t in range(t_q):
-        kp_ref = kp_ref.at[rows_ref[:, t], offs[:, t]].set(k_new[:, t].reshape(slots, -1))
-        vp_ref = vp_ref.at[rows_ref[:, t], offs[:, t]].set(v_new[:, t].reshape(slots, -1))
-    ref = paged_attention_multi(q, kp_ref, vp_ref, phys, hist + 1)
-
-    # kernel window rows (mirrors decode_step_tokens_spec's resolution)
-    g1 = (hist // WRITE_WIN) * WRITE_WIN
-    g2 = g1 + WRITE_WIN
-    l1 = jnp.take_along_axis(jnp.asarray(logical), jnp.clip(g1 // ps, 0, max_pages - 1)[:, None], 1)[:, 0]
-    l2 = jnp.take_along_axis(jnp.asarray(logical), jnp.clip(g2 // ps, 0, max_pages - 1)[:, None], 1)[:, 0]
-    row1 = jnp.where(jnp.logical_and(active, hist < cap), base + l1, trash)
-    row2 = jnp.where(
-        jnp.logical_and(active, jnp.logical_and(g2 < cap, g2 <= hist + t_q - 1)), base + l2, trash
-    )
-    with pltpu.force_tpu_interpret_mode():
-        got, kp_out, vp_out = paged_attention_pallas_multi(
-            q, kp, vp, phys, hist, k_new=k_new, v_new=v_new,
-            row_w1=row1, row_w2=row2, interpret=True,
-        )
-    np.testing.assert_allclose(np.asarray(got)[:3], np.asarray(ref)[:3], rtol=2e-5, atol=2e-5)
-    # pool contents identical everywhere except the trash row
-    np.testing.assert_array_equal(np.asarray(kp_out)[:-1], np.asarray(kp_ref)[:-1])
-    np.testing.assert_array_equal(np.asarray(vp_out)[:-1], np.asarray(vp_ref)[:-1])
-
-
-def test_spec_decode_pallas_e2e_interpret(setup):
-    """Spec decode through the ENGINE with attn_impl='pallas' (interpret):
-    pallas flash prefill + fused multi-token verification across several
-    verify rounds must stay lossless vs the naive sequential stream. Exercises
-    the engine's window-row resolution as seq_lens advances through window and
-    page boundaries (ps=8 == WRITE_WIN: every window is a fresh page row)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    cfg, params = setup
-    rng = np.random.default_rng(23)
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in [5, 11, 3]]
-    sp = SamplingParams(temperature=0.0, max_tokens=10, stop_token_ids=())
-
-    with pltpu.force_tpu_interpret_mode():
-        engine = make_engine(params, cfg, n_slots=4, speculate_k=3, attn_impl="pallas")
-        outs = engine.generate_batch(prompts, sp)
-
-    for prompt, out in zip(prompts, outs):
-        assert out["token_ids"] == naive_greedy(params, cfg, prompt, 10)
-    assert engine.last_stats["tokens_per_verify"] > 1.0
 
 
 # --- cross-request prefix caching (vLLM automatic prefix caching role) ------------
@@ -1372,7 +1217,7 @@ def test_admission_order_requeued_front_priority(setup):
         st = engine._st
         # long job queued first, then a requeued (preempted) job parked at front
         engine.add_request([1, 2, 3, 4, 5], max_tokens=8)
-        from ssi_tpu.generate.paged_engine import _Request
+        from ssi_jax.generate.paged_engine import _Request
 
         preempted = _Request(idx=999, prompt=[7] * 5, max_tokens=8, requeued=True)
         st.queue.insert(0, [preempted])

@@ -15,10 +15,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ssi_tpu.generate.engine import SamplingParams
-from ssi_tpu.generate.paged_engine import PagedDecodeEngine
-from ssi_tpu.models.llama3 import init_params
-from ssi_tpu.parallel import make_mesh
+from ssi_jax.generate.engine import SamplingParams
+from ssi_jax.generate.paged_engine import PagedDecodeEngine
+from ssi_jax.models.llama3 import init_params
+from ssi_jax.parallel import make_mesh
 from tests import helpers
 from tests.test_paged_decode import make_engine, naive_greedy
 

@@ -8,11 +8,11 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
-from ssi_tpu.models.llama3 import init_params
-from ssi_tpu.parallel import batch_sharding, make_mesh, param_specs, shard_params
-from ssi_tpu.train.lr_schedule import constant_schedule
-from ssi_tpu.train.optimizer import AdamWConfig, init_opt_state
-from ssi_tpu.train.step import make_train_step
+from ssi_jax.models.llama3 import init_params
+from ssi_jax.parallel import batch_sharding, make_mesh, param_specs, shard_params
+from ssi_jax.train.lr_schedule import constant_schedule
+from ssi_jax.train.optimizer import AdamWConfig, init_opt_state
+from ssi_jax.train.step import make_train_step
 from tests import helpers
 
 
@@ -28,7 +28,7 @@ def test_param_specs_layout():
 
 
 def _loss_and_grads(mesh_shape, tokens, labels):
-    from ssi_tpu.train.step import make_loss_fn
+    from ssi_jax.train.step import make_loss_fn
 
     cfg = helpers.tiny_config()
     dp, tp = mesh_shape
@@ -90,7 +90,7 @@ def test_uneven_vocab_tp_sharding_falls_back():
 
 
 class TestHybridDcnMesh:
-    """Multi-slice (DCN) mesh: slice-major dp ordering, tp confined to a slice."""
+    """Multi-node (host-grouped) mesh: group-major dp ordering, tp confined to a group."""
 
     def test_layout_is_slice_major(self):
         devices = jax.devices()
@@ -106,7 +106,7 @@ class TestHybridDcnMesh:
             assert {d in first_slice for d in row} in ({True}, {False})
 
     def test_tp_crossing_dcn_rejected(self):
-        with pytest.raises(ValueError, match="DCN boundary"):
+        with pytest.raises(ValueError, match="host-group boundary"):
             make_mesh(tp=8, dcn_slices=2)  # per-slice count 4 < tp
 
     def test_unequal_and_indivisible_slices_rejected(self):
@@ -122,7 +122,7 @@ class TestHybridDcnMesh:
 
         ref_loss, ref_grads = _loss_and_grads((8, 1), tokens, labels)
 
-        from ssi_tpu.train.step import make_loss_fn
+        from ssi_jax.train.step import make_loss_fn
 
         mesh = make_mesh(dcn_slices=2, tp=2)
         params = shard_params(mesh, init_params(cfg, jax.random.key(0), dtype=jnp.float32))
@@ -139,7 +139,7 @@ class TestZero1:
     """ZeRO-1: AdamW moments shard over dp; math must equal replicated state."""
 
     def test_spec_augmentation(self):
-        from ssi_tpu.parallel import _zero1_spec
+        from ssi_jax.parallel import _zero1_spec
 
         mesh = make_mesh(dp=4, tp=2)
         # first unsharded divisible dim takes "dp"
@@ -153,7 +153,7 @@ class TestZero1:
 
     @pytest.mark.parametrize("mode", ["zero1", "fsdp"])
     def test_step_matches_replicated_and_shrinks_moments(self, mode):
-        from ssi_tpu.parallel import opt_state_shardings, param_shardings
+        from ssi_jax.parallel import opt_state_shardings, param_shardings
 
         cfg = helpers.tiny_config()
         rng = np.random.default_rng(3)
@@ -216,8 +216,8 @@ def test_8b_fsdp_aot_compile():
     Ref: /root/reference/ssi/llama_configs.py:142-155 (the reference's scale
     ladder); BASELINE configs[4] ("stretch to Llama-3-8B").
     """
-    from ssi_tpu.models.configs import MODEL_CONFIGS
-    from ssi_tpu.parallel import opt_state_shardings, param_shardings
+    from ssi_jax.models.configs import MODEL_CONFIGS
+    from ssi_jax.parallel import opt_state_shardings, param_shardings
 
     cfg = MODEL_CONFIGS["llama3_1_8b"].copy()
     cfg.n_dsus = 5000
@@ -274,8 +274,8 @@ def test_3b_fsdp_aot_compile():
     Ref: /root/reference/ssi/llama_configs.py:142-155 (3B singleton the
     reference declares but never trains).
     """
-    from ssi_tpu.models.configs import MODEL_CONFIGS
-    from ssi_tpu.parallel import opt_state_shardings, param_shardings
+    from ssi_jax.models.configs import MODEL_CONFIGS
+    from ssi_jax.parallel import opt_state_shardings, param_shardings
 
     cfg = MODEL_CONFIGS["llama3_2_3b"].copy()
     cfg.n_dsus = 5000

@@ -26,7 +26,7 @@ def _deep_merge(dst: dict, src: dict) -> None:
 
 
 def run_trainer(model_dir, ckpt_dir, max_steps, training_state=None, save_steps=HALF_STEPS, mesh=None, extra_cfg=None):
-    from ssi_tpu.train import Trainer
+    from ssi_jax.train import Trainer
 
     cfg_dict = helpers.base_train_cfg_dict(model_dir, ckpt_dir, kind="sft")
     cfg_dict["max_steps"] = max_steps
@@ -59,7 +59,7 @@ def model_dir(tmp_path_factory):
 def _patch_data(monkeypatch):
     import datasets as hfd
 
-    import ssi_tpu.data as data_mod
+    import ssi_jax.data as data_mod
 
     sft_rows = helpers.synthetic_sft_rows(64)
     monkeypatch.setattr(data_mod, "load_hf_dataset", lambda source, **kw: hfd.Dataset.from_list(sft_rows))
@@ -140,7 +140,7 @@ def test_resume_across_mesh_relayout(model_dir, tmp_path, monkeypatch, mesh_a, m
 
     Cross-layout SPMD partitioning changes reduction order, so the contract here is
     fp32-rounding agreement (same tolerance as tests/test_parallel.py), not the
-    bitwise equality required on an identical topology (VERDICT r1 item 5).
+    bitwise equality required on an identical topology.
     """
     _patch_data(monkeypatch)
     tag = f"{mesh_a[0]}x{mesh_a[1]}-{mesh_b[0]}x{mesh_b[1]}"
@@ -167,9 +167,9 @@ def test_resume_sharded_optimizer_state(model_dir, tmp_path, monkeypatch):
     """Orbax sharded optimizer state: bitwise resume on the same mesh, fp32
     agreement across a relayout, marker in msgpack, superseded dirs pruned."""
     pytest.importorskip("orbax.checkpoint")
-    from ssi_tpu.checkpoint import TRAINING_STATE_FNAME, unpack_state
-    from ssi_tpu.checkpoint.orbax_io import ORBAX_DIR_KEY
-    from ssi_tpu.constants import OPTIMIZER_KEY
+    from ssi_jax.checkpoint import TRAINING_STATE_FNAME, unpack_state
+    from ssi_jax.checkpoint.orbax_io import ORBAX_DIR_KEY
+    from ssi_jax.constants import OPTIMIZER_KEY
 
     _patch_data(monkeypatch)
     sharded = {"sharded_optimizer_state": True}
@@ -205,7 +205,7 @@ def test_resume_sharded_optimizer_state(model_dir, tmp_path, monkeypatch):
 
 def test_resume_validates_hparams(model_dir, tmp_path, monkeypatch):
     """Changing batch geometry on resume must be refused (ref: ssi/train_utils.py:110-126)."""
-    from ssi_tpu.train import Trainer
+    from ssi_jax.train import Trainer
 
     _patch_data(monkeypatch)
     run_trainer(model_dir, tmp_path / "a", HALF_STEPS)
@@ -244,7 +244,7 @@ def test_resume_across_epoch_boundary(model_dir, tmp_path, monkeypatch):
     reshuffle, and per-epoch dataset state must all line up bitwise."""
     import datasets as hfd
 
-    import ssi_tpu.data as data_mod
+    import ssi_jax.data as data_mod
 
     # small dataset -> steps_per_epoch = 16 rows / batch 2 / accum 2 = 4
     rows = helpers.synthetic_sft_rows(16)
@@ -278,7 +278,7 @@ def test_resume_across_epoch_boundary(model_dir, tmp_path, monkeypatch):
 
 
 def test_resume_equivalence_windowed_packed(model_dir, tmp_path, monkeypatch):
-    """Bitwise resume with the streaming windowed packer (VERDICT r2 item 4):
+    """Bitwise resume with the streaming windowed packer:
     pack content is a pure function of (epoch, window), so no packer state is
     checkpointed and the loss stream must continue exactly."""
     _patch_data(monkeypatch)
@@ -315,7 +315,7 @@ def test_resume_zero1_optimizer_sharding(model_dir, tmp_path, monkeypatch, knob)
     gathers the shards, restore re-places them onto the dp layout."""
     import jax
 
-    from ssi_tpu.checkpoint import TRAINING_STATE_FNAME
+    from ssi_jax.checkpoint import TRAINING_STATE_FNAME
 
     _patch_data(monkeypatch)
     z1 = {"parallel": {"dp": 2, "tp": 2, knob: True}}  # sft batch_size=2 -> dp<=2

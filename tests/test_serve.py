@@ -17,9 +17,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ssi_tpu.generate.engine import SamplingParams
-from ssi_tpu.models.llama3 import init_params
-from ssi_tpu.serve import Server, run_http_server
+from ssi_jax.generate.engine import SamplingParams
+from ssi_jax.models.llama3 import init_params
+from ssi_jax.serve import Server, run_http_server
 from tests import helpers
 from tests.test_paged_decode import make_engine, naive_greedy
 
@@ -390,8 +390,8 @@ def test_stream_disconnect_aborts(setup):
 @pytest.fixture()
 def chat_server(setup, tmp_path):
     """Server with a real (tiny, DSU-extended) tokenizer for chat endpoints."""
-    from ssi_tpu.extend import extend_tiktoken
-    from ssi_tpu.tokenizer import setup_llama3_tokenizer
+    from ssi_jax.extend import extend_tiktoken
+    from ssi_jax.tokenizer import setup_llama3_tokenizer
 
     cfg, params = setup
     tok_path = tmp_path / "tokenizer.model"
@@ -414,7 +414,7 @@ def test_chat_completions(setup, chat_server):
     """/v1/chat/completions renders the Llama-3 chat format (SFT inference
     construction) and returns an OpenAI chat.completion; token_ids equal the
     naive greedy stream over the rendered prompt."""
-    from ssi_tpu.serve import _chat_prompt_tokens
+    from ssi_jax.serve import _chat_prompt_tokens
 
     cfg, params = setup
     _srv, tokenizer, url = chat_server
@@ -502,7 +502,7 @@ def test_start_surfaces_begin_stream_error(setup):
 def test_incremental_decoder_repairs_split_utf8():
     """A multi-byte character split across two deltas streams as the real
     character once complete, never as U+FFFD mojibake."""
-    from ssi_tpu.serve import _IncrementalDecoder
+    from ssi_jax.serve import _IncrementalDecoder
 
     class ByteTok:
         def decode(self, ids):

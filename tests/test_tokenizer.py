@@ -7,10 +7,10 @@ ssi/tokenizer/__init__.py:14-31).
 
 import pytest
 
-from ssi_tpu.extend import extend_tiktoken
-from ssi_tpu.speech import MODALITY_TOKEN_SPEECH, MODALITY_TOKEN_TEXT, dsu2pua, pua2dsu
-from ssi_tpu.tokenizer import LLAMA3_SPECIAL_TOKENS, setup_llama3_tokenizer
-from ssi_tpu.tokenizer.messages import Message, validate_messages
+from ssi_jax.extend import extend_tiktoken
+from ssi_jax.speech import MODALITY_TOKEN_SPEECH, MODALITY_TOKEN_TEXT, dsu2pua, pua2dsu
+from ssi_jax.tokenizer import LLAMA3_SPECIAL_TOKENS, setup_llama3_tokenizer
+from ssi_jax.tokenizer.messages import Message, validate_messages
 from tests.helpers import write_tiny_tokenizer
 
 
@@ -137,7 +137,7 @@ def test_setup_pattern_knob(tmp_path):
     pattern (compressed-DSU runs); default stays the PUA contract."""
     from tests import helpers
 
-    from ssi_tpu.tokenizer import CL100K_PATTERN, CL100K_PATTERN_PUA, setup_llama3_tokenizer
+    from ssi_jax.tokenizer import CL100K_PATTERN, CL100K_PATTERN_PUA, setup_llama3_tokenizer
 
     path = helpers.write_tiny_tokenizer(tmp_path / "tokenizer.model")
     tok_default, _ = setup_llama3_tokenizer(path, verbose=False)

@@ -13,7 +13,7 @@ from tests import helpers
 
 @pytest.fixture()
 def trainer(tmp_path, synthetic_data):
-    from ssi_tpu.train import Trainer
+    from ssi_jax.train import Trainer
 
     model_dir = helpers.make_tiny_hf_checkpoint(tmp_path / "model")
     cfg = helpers.make_cfg(helpers.base_train_cfg_dict(model_dir, tmp_path / "ckpts", kind="sft"))
@@ -76,7 +76,7 @@ def test_full_run_saves_checkpoints(trainer, tmp_path):
 
 def test_token_counts_match_host_computation(trainer):
     """Device-side accounting equals the host reference implementation."""
-    from ssi_tpu.train.train_utils import count_token_types
+    from ssi_jax.train.train_utils import count_token_types
 
     trainer.setup()
     batch = next(iter(trainer.data_train))
@@ -84,7 +84,7 @@ def test_token_counts_match_host_computation(trainer):
 
     import jax.numpy as jnp
 
-    from ssi_tpu.train.step import count_token_types_device
+    from ssi_jax.train.step import count_token_types_device
 
     dev_counts = count_token_types_device(jnp.asarray(batch["tokens"]), trainer.token_type_ranges, trainer.tokenizer.pad_id)
     for k, v in host_counts.items():
@@ -93,10 +93,10 @@ def test_token_counts_match_host_computation(trainer):
 
 def test_token_counts_padding_invariant(trainer):
     """Counts for the same samples are identical however much padding is appended
-    (VERDICT r1 item 7: pad tokens must not leak into the special_text range)."""
+    (pad tokens must not leak into the special_text range)."""
     import numpy as np
 
-    from ssi_tpu.train.train_utils import count_token_types
+    from ssi_jax.train.train_utils import count_token_types
 
     trainer.setup()
     batch = next(iter(trainer.data_train))
@@ -111,7 +111,7 @@ def test_token_counts_padding_invariant(trainer):
 
 
 def test_cpt_trainer_runs(tmp_path, synthetic_data):
-    from ssi_tpu.train import Trainer
+    from ssi_jax.train import Trainer
 
     model_dir = helpers.make_tiny_hf_checkpoint(tmp_path / "model")
     cfg_dict = helpers.base_train_cfg_dict(model_dir, tmp_path / "ckpts", kind="cpt")
@@ -127,7 +127,7 @@ def test_cpt_trainer_runs(tmp_path, synthetic_data):
 
 def test_checkpoint_retention_and_async_save(tmp_path, synthetic_data):
     """Planned-but-unbuilt reference features F4/F5: retention policy + async save."""
-    from ssi_tpu.train import Trainer
+    from ssi_jax.train import Trainer
 
     model_dir = helpers.make_tiny_hf_checkpoint(tmp_path / "model")
     cfg_dict = helpers.base_train_cfg_dict(model_dir, tmp_path / "ckpts", kind="sft")
@@ -145,7 +145,7 @@ def test_checkpoint_retention_and_async_save(tmp_path, synthetic_data):
     assert step_dirs == ["step_4", "step_6"], step_dirs  # step_2 pruned
     assert (root / "training_state.msgpack").is_file()
     # the kept checkpoints are loadable
-    from ssi_tpu.checkpoint import Checkpointer
+    from ssi_jax.checkpoint import Checkpointer
 
     ck = Checkpointer(checkpoint_dir=root / "step_6", output_dir=tmp_path / "reload")
     params = ck.load_params(t._llama_config, dtype="float32")
@@ -155,7 +155,7 @@ def test_checkpoint_retention_and_async_save(tmp_path, synthetic_data):
 def test_wsd_schedule_shape():
     import numpy as np
 
-    from ssi_tpu.train.lr_schedule import wsd_schedule
+    from ssi_jax.train.lr_schedule import wsd_schedule
 
     sched = wsd_schedule(1.0, num_warmup_steps=10, num_training_steps=100, decay_fraction=0.2, min_lr_ratio=0.1)
     assert float(sched(0)) == 0.0
@@ -171,7 +171,7 @@ def test_wsd_schedule_shape():
 
 
 def test_profiler_hook(tmp_path, synthetic_data):
-    from ssi_tpu.train import Trainer
+    from ssi_jax.train import Trainer
 
     model_dir = helpers.make_tiny_hf_checkpoint(tmp_path / "model")
     cfg_dict = helpers.base_train_cfg_dict(model_dir, tmp_path / "ckpts", kind="sft")
@@ -189,7 +189,7 @@ def test_profiler_hook(tmp_path, synthetic_data):
 def test_retention_spares_resume_source_dir(tmp_path, synthetic_data):
     """Pruning must never delete the step dir training resumed FROM — every
     later save copies configs out of it (a prune-then-save would crash)."""
-    from ssi_tpu.train import Trainer
+    from ssi_jax.train import Trainer
 
     model_dir = helpers.make_tiny_hf_checkpoint(tmp_path / "model")
     # first run leaves step_2 / step_4 in the output dir
@@ -226,7 +226,7 @@ def test_overlap_io_equivalence(tmp_path, synthetic_data):
     Eval/save/final steps exercise the synchronous fallback (the processing
     of those windows reads post-step state before the next dispatch donates
     it): max_steps=8 with save/eval at 4 covers boundary + steady-state."""
-    from ssi_tpu.train import Trainer
+    from ssi_jax.train import Trainer
 
     def run(overlap: bool, tag: str):
         model_dir = helpers.make_tiny_hf_checkpoint(tmp_path / f"model_{tag}")
@@ -267,7 +267,7 @@ def test_overlap_io_equivalence(tmp_path, synthetic_data):
 def test_final_checkpoint_saved_at_max_steps(tmp_path, synthetic_data):
     """max_steps not divisible by save_steps: the run's end state must still
     be written (the reference never reaches max_steps; we do)."""
-    from ssi_tpu.train import Trainer
+    from ssi_jax.train import Trainer
 
     model_dir = helpers.make_tiny_hf_checkpoint(tmp_path / "model")
     cfg_dict = helpers.base_train_cfg_dict(model_dir, tmp_path / "ckpts", kind="sft")

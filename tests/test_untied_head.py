@@ -14,9 +14,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ssi_tpu.checkpoint.convert import expected_hf_keys, hf_to_internal, internal_to_hf
-from ssi_tpu.models.configs import MODEL_CONFIGS, configllama3_1_8b
-from ssi_tpu.models.llama3 import forward, init_params, logits, unembed
+from ssi_jax.checkpoint.convert import expected_hf_keys, hf_to_internal, internal_to_hf
+from ssi_jax.models.configs import MODEL_CONFIGS, configllama3_1_8b
+from ssi_jax.models.llama3 import forward, init_params, logits, unembed
 from tests import helpers
 
 
@@ -124,9 +124,9 @@ def test_untied_logits_match_transformers(untied_setup):
 
 
 def test_untied_train_step_updates_lm_head(untied_setup):
-    from ssi_tpu.train.lr_schedule import constant_schedule
-    from ssi_tpu.train.optimizer import AdamWConfig, init_opt_state
-    from ssi_tpu.train.step import make_train_step
+    from ssi_jax.train.lr_schedule import constant_schedule
+    from ssi_jax.train.optimizer import AdamWConfig, init_opt_state
+    from ssi_jax.train.step import make_train_step
 
     cfg, params = untied_setup
     opt_cfg = AdamWConfig(lr=1e-3, mu_dtype=jnp.float32, nu_dtype=jnp.float32)
@@ -151,8 +151,8 @@ def test_untied_train_step_updates_lm_head(untied_setup):
 
 
 def test_untied_paged_decode_greedy_parity(untied_setup):
-    from ssi_tpu.generate.engine import SamplingParams
-    from ssi_tpu.generate.paged_engine import PagedDecodeEngine
+    from ssi_jax.generate.engine import SamplingParams
+    from ssi_jax.generate.paged_engine import PagedDecodeEngine
 
     cfg, params = untied_setup
     rng = np.random.default_rng(3)
@@ -170,9 +170,9 @@ def test_untied_paged_decode_greedy_parity(untied_setup):
 def test_8b_compile_check():
     """Shape-level trace of init + loss + one optimizer step on the REAL 8B
     config (abstract arrays only — nothing materializes)."""
-    from ssi_tpu.train.lr_schedule import constant_schedule
-    from ssi_tpu.train.optimizer import AdamWConfig, init_opt_state
-    from ssi_tpu.train.step import make_train_step
+    from ssi_jax.train.lr_schedule import constant_schedule
+    from ssi_jax.train.optimizer import AdamWConfig, init_opt_state
+    from ssi_jax.train.step import make_train_step
 
     cfg = configllama3_1_8b.copy()
     cfg.n_dsus = 5000

@@ -2,7 +2,7 @@
 
 import pytest
 
-from ssi_tpu.eval import english_normalizer, word_error_rate
+from ssi_jax.eval import english_normalizer, word_error_rate
 
 
 def test_wer_exact_match():
@@ -58,8 +58,8 @@ def test_normalized_wer_pipeline():
 
 def test_spelling_mapping_vendored():
     """The vendored British->American mapping is loaded by default and applied
-    whole-word after normalization (VERDICT r1 item 4)."""
-    from ssi_tpu.eval import load_spelling_mapping
+    whole-word after normalization."""
+    from ssi_jax.eval import load_spelling_mapping
 
     mapping = load_spelling_mapping()
     assert len(mapping) > 900
@@ -88,7 +88,7 @@ def test_spelling_mapping_vendored():
 
 def test_normalizer_adversarial_goldens():
     """Frozen outputs of the full normalizer on adversarial inputs — numbers,
-    currency, abbreviations, contractions, disfluencies (VERDICT r2 item 3).
+    currency, abbreviations, contractions, disfluencies.
 
     Expected strings were generated from transformers' vendored
     EnglishTextNormalizer, which is Whisper's implementation verbatim (the
@@ -146,9 +146,9 @@ def test_spelling_map_generator_in_sync():
 
 
 def test_spelling_map_scale_and_classes():
-    """Coverage floor per VERDICT r2 item 3: >=1.6k entries, with every
+    """Coverage floor: >=1.6k entries, with every
     morphological class represented."""
-    from ssi_tpu.eval import load_spelling_mapping
+    from ssi_jax.eval import load_spelling_mapping
 
     m = load_spelling_mapping()
     assert len(m) >= 1600
@@ -168,9 +168,9 @@ def test_spelling_map_scale_and_classes():
 
 
 def test_suspected_unmapped_words():
-    """Residual-divergence counter (VERDICT r3 item 7): post-normalization words
+    """Residual-divergence counter: post-normalization words
     that look British-spelled but are absent from the vendored map."""
-    from ssi_tpu.eval.wer import (
+    from ssi_jax.eval.wer import (
         load_spelling_mapping,
         spelling_mapping_fingerprint,
         suspected_unmapped_words,
@@ -200,7 +200,7 @@ def test_suspected_unmapped_words():
 def test_normalizer_class_boundary_goldens():
     """Every systematic spelling-map class exercised at its boundary: one mapped
     word AND one identical-in-US neighbour per class, through the FULL
-    normalizer (VERDICT r3 item 7)."""
+    normalizer."""
     normalize = english_normalizer()
     cases = [
         # (-ise class, and an -ise word that must survive)

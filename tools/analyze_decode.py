@@ -15,17 +15,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-_CACHE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
-jax.config.update("jax_compilation_cache_dir", _CACHE_DIR)
+import ssi_jax  # noqa: E402,F401  (the package's one compile-cache location)
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
 
 import jax.numpy as jnp
 import numpy as np
 
-from ssi_tpu.generate.engine import SamplingParams
-from ssi_tpu.generate.paged_engine import PagedDecodeEngine
-from ssi_tpu.models.configs import MODEL_CONFIGS, configllama3_2_1b
-from ssi_tpu.models.llama3 import init_params
+from ssi_jax.generate.engine import SamplingParams
+from ssi_jax.generate.paged_engine import PagedDecodeEngine
+from ssi_jax.models.configs import MODEL_CONFIGS, configllama3_2_1b
+from ssi_jax.models.llama3 import init_params
 
 
 def main() -> None:

@@ -1,11 +1,10 @@
 #!/usr/bin/env python
 """Sweep paged-engine slot count on the bench_decode ragged workload (1B).
 
-The measured decode roofline (BENCH extra, round 4) says the engine is within
-~1.1x of its bandwidth bound AT 48 SLOTS — but the bound itself scales with
-slots: each chunk dispatch streams the full weight stack once, so more active
-slots amortize the same weight bytes over more tokens. This sweep asks whether
-the headline serving config should sit above 48 slots for the 96-request
+The decode roofline bound itself scales with slots: each chunk dispatch
+streams the full weight stack once, so more active slots amortize the same
+weight bytes over more tokens. This sweep asks which slot count the serving
+config should use for the 96-request
 ragged workload, or whether occupancy decay (ragged finish times with an empty
 refill queue) eats the amortization.
 
@@ -22,8 +21,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-_CACHE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
-jax.config.update("jax_compilation_cache_dir", _CACHE_DIR)
+import ssi_jax  # noqa: E402,F401  (the package's one compile-cache location)
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
 
 import jax.numpy as jnp
@@ -44,10 +42,10 @@ def main() -> None:
     args = ap.parse_args()
 
     from bench_decode import _ragged_workload, measure_hbm_bw
-    from ssi_tpu.generate.engine import SamplingParams
-    from ssi_tpu.generate.paged_engine import PagedDecodeEngine
-    from ssi_tpu.models.configs import MODEL_CONFIGS
-    from ssi_tpu.models.llama3 import init_params
+    from ssi_jax.generate.engine import SamplingParams
+    from ssi_jax.generate.paged_engine import PagedDecodeEngine
+    from ssi_jax.models.configs import MODEL_CONFIGS
+    from ssi_jax.models.llama3 import init_params
 
     cfg = MODEL_CONFIGS[args.model].copy()
     cfg.n_dsus = 5000

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Regenerate ssi_tpu/eval/english_spelling.json (British->American mapping).
+"""Regenerate ssi_jax/eval/english_spelling.json (British->American mapping).
 
 The reference normalizes WER text with whisper_normalizer's
 EnglishTextNormalizer, whose ~1.7k-entry ``english.json`` asset (derived from
@@ -37,7 +37,7 @@ import argparse
 import json
 from pathlib import Path
 
-OUT = Path(__file__).resolve().parent.parent / "ssi_tpu" / "eval" / "english_spelling.json"
+OUT = Path(__file__).resolve().parent.parent / "ssi_jax" / "eval" / "english_spelling.json"
 
 # --------------------------------------------------------------------------
 # 1. -ise verbs: (stem, agent, ation). agent: also Xiser/Xisers;

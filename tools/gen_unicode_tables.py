@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Generate ssi_tpu/native/src/unicode_tables.h from Python's unicodedata.
+"""Generate ssi_jax/native/src/unicode_tables.h from Python's unicodedata.
 
 The native BPE scanner (bpe.cc) needs three character classes from the cl100k
 split regex: \\p{L} (letters), \\p{N} (numbers) and \\s (Unicode White_Space).
@@ -68,7 +68,7 @@ def main() -> None:
         + emit("kWhitespace", WHITESPACE_RANGES)
         + "}  // namespace uni\n"
     )
-    path = Path(__file__).parent.parent / "ssi_tpu" / "native" / "src" / "unicode_tables.h"
+    path = Path(__file__).parent.parent / "ssi_jax" / "native" / "src" / "unicode_tables.h"
     path.write_text(out)
     print(f"wrote {path}: {len(letters)} letter ranges, {len(numbers)} number ranges")
 

@@ -42,7 +42,7 @@ def main():
     # jax.distributed must come up BEFORE anything touches the XLA backend
     # (importing the data/trainer stack initializes devices); the Trainer's own
     # initialize_distributed call is idempotent and becomes a no-op.
-    from ssi_tpu.parallel import initialize_distributed
+    from ssi_jax.parallel import initialize_distributed
 
     dist_cfg = {
         "distributed": True,
@@ -53,7 +53,7 @@ def main():
     assert initialize_distributed(dist_cfg)
 
     from tests import helpers
-    from ssi_tpu.train import Trainer
+    from ssi_jax.train import Trainer
 
     model_dir = args.workdir / "model"
     data_file = str(args.workdir / "data.jsonl")

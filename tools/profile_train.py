@@ -3,9 +3,8 @@
 
 Traces a few optimizer steps with jax.profiler, then parses the xplane with
 tensorboard_plugin_profile and prints the top ops by self time as JSONL —
-the attributable step-time decomposition the ROADMAP's perf levers come from
-(round-3 numbers like "113 ms/step rematted_computation" were produced this
-way). Usage:
+the attributable step-time decomposition the ROADMAP's perf levers come
+from. Usage:
 
     python tools/profile_train.py [--shape cpt|sft] [--top 40]
 """
@@ -20,8 +19,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-_CACHE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
-jax.config.update("jax_compilation_cache_dir", _CACHE_DIR)
+import ssi_jax  # noqa: E402,F401  (the package's one compile-cache location)
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
 
 

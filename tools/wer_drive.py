@@ -1,11 +1,10 @@
 #!/usr/bin/env python
-"""Hardware WER drive: the FULL reference pipeline end-to-end on the attached chip.
+"""Hardware WER drive: the FULL reference pipeline end-to-end on the attached GPU.
 
-Closes the one north-star axis that was a claim rather than a measurement
-(VERDICT r3 item 1): extend_llama3_2 -> train_sft -> generate (bf16 AND int8)
--> wer_parity, producing committed ``wer_parity.json`` artifacts with a real
-WER value and the int8-vs-bf16 WER delta (the acceptance gate named in
-conf/generate.yaml and bench_decode.py).
+extend_llama3_2 -> train_sft -> generate (bf16 AND int8) -> wer_parity,
+producing ``wer_parity.json`` artifacts with a real WER value and the
+int8-vs-bf16 WER delta (the acceptance gate named in conf/generate.yaml and
+bench_decode.py).
 
 Offline constraints (zero egress, no hub weights/data) are met by synthesizing
 the INPUTS while keeping every pipeline stage real and at real scale:
@@ -29,24 +28,25 @@ the INPUTS while keeping every pipeline stage real and at real scale:
   An SFT run learns the codebook the way MLS SFT learns real ASR (ref task:
   scripts/train_sft.py on mls-hubert_large_ll60k-layer_22, n_dsus=5000).
 
-Measured result (v5e, 2026-08-21, committed in artifacts/wer_drive/):
-WER 0.0000 in bf16 AND weight-only int8 — all 256 test transcripts exact.
-The earlier 0.63 plateaus were SILENT TRUNCATION (the ~67-token reference
-system prompt overflowed max_seq_len=96 and amputated every answer), caught
-by comparing loss against the task's closed-form speech-blind floor; a
-pre-train guard (assert_no_truncation) now makes that failure impossible.
+Silent truncation (the ~67-token reference system prompt overflowing
+max_seq_len and amputating every answer) once held WER at a plateau; it is
+caught by comparing loss against the task's closed-form speech-blind floor,
+and a pre-train guard (assert_no_truncation) now makes that failure impossible.
 
 Every stage runs through the REAL CLIs (scripts/extend_llama3_2.py,
 scripts/train_sft.py, scripts/generate.py, scripts/wer_parity.py) with
 config-surface overrides only — nothing here has a private code path.
 
-Usage (on the TPU host):
+The parent process never starts a JAX backend (assets are built with numpy):
+the JAX children below get the card to themselves.
 
-    python tools/wer_drive.py --workdir /root/repo/.wer_drive            # full drive
+Usage (on the GPU host):
+
+    python tools/wer_drive.py --workdir .wer_drive                      # full drive
     python tools/wer_drive.py --workdir /tmp/wd --smoke                  # wiring check
     python tools/wer_drive.py ... --phases assets,extend,train           # partial
 
-Artifacts land in ``--artifacts-dir`` (default artifacts/wer_drive): the two
+Artifacts land in ``--artifacts-dir`` (default <workdir>/artifacts): the two
 wer_parity.json files plus summary.json with the full fingerprint.
 """
 
@@ -127,8 +127,8 @@ WORDS = _dedupe(WORDS)
 # ------------------------------------------------------------------------------
 
 
-def build_base_tokenizer(path: Path, words: list[str]) -> None:
-    """Write a valid 128,000-entry tiktoken BPE file.
+def build_base_tokenizer(path: Path, words: list[str], vocab_size: int = BASE_VOCAB) -> None:
+    """Write a valid ``vocab_size``-entry tiktoken BPE file (128,000 = Llama 3.2's).
 
     Layout (ranks ascending): 256 byte tokens; the 128 two-byte UTF-8
     intermediate merges for the PUA lead bytes 0xEE/0xEF (so the extension's
@@ -136,8 +136,9 @@ def build_base_tokenizer(path: Path, words: list[str]) -> None:
     can only form a token if both halves of some split exist at lower ranks);
     prefix-chain merges for every task word (with and without leading space,
     sorted by length so each prefix outranks its extension); deterministic
-    filler byte strings up to exactly 128,000 (valid, unreachable, harmless —
-    real Llama vocab mass our task never touches).
+    filler byte strings up to exactly ``vocab_size`` (valid, unreachable,
+    harmless — real Llama vocab mass our task never touches). A 256-entry file
+    is the byte tokens alone.
     """
     tokens: list[bytes] = [bytes([i]) for i in range(256)]
     seen = set(tokens)
@@ -165,19 +166,19 @@ def build_base_tokenizer(path: Path, words: list[str]) -> None:
     # Filler: 2-byte high-lead pairs, then 3-byte 0xF8..0xFD-lead triples.
     for a in range(0x80, 0x100):
         for b in range(0x100):
-            if len(tokens) >= BASE_VOCAB:
+            if len(tokens) >= vocab_size:
                 break
             add(bytes([a, b]))
     for lead in range(0xF8, 0xFE):
         for a in range(0x100):
             for b in range(0x100):
-                if len(tokens) >= BASE_VOCAB:
+                if len(tokens) >= vocab_size:
                     break
                 add(bytes([lead, a, b]))
 
-    if len(tokens) < BASE_VOCAB:
+    if len(tokens) < vocab_size:
         raise RuntimeError(f"only {len(tokens)} tokens constructed")
-    tokens = tokens[:BASE_VOCAB]
+    tokens = tokens[:vocab_size]
     path.parent.mkdir(parents=True, exist_ok=True)
     with open(path, "w") as f:
         for rank, tok in enumerate(tokens):
@@ -185,28 +186,57 @@ def build_base_tokenizer(path: Path, words: list[str]) -> None:
     LOGGER.info(f"base tokenizer.model: {len(tokens)} entries -> {path}")
 
 
-def build_base_checkpoint(model_dir: Path, model_config: str) -> None:
+def init_params_numpy(cfg, seed: int = SEED) -> dict:
+    """``models.llama3.init_params`` in numpy (same layout and scales, fp32):
+    builds a base checkpoint without starting a JAX backend, so a launcher that
+    runs JAX children on the card keeps its own process off the card."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    d, f, hd = cfg.embed_dim, cfg.intermediate_dim, cfg.head_dim
+    hq, hkv, nl, v = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers, cfg.vocab_size
+
+    def norm_init(shape, fan_in):
+        x = rng.standard_normal(shape, dtype=np.float32)
+        x *= np.float32(fan_in**-0.5)
+        return x
+
+    extra = {} if cfg.tied_embeddings else {"lm_head": norm_init((v, d), d)}
+    return extra | {
+        "embed": norm_init((v, d), d),
+        "layers": {
+            "attn_norm": np.ones((nl, d), np.float32),
+            "wq": norm_init((nl, d, hq * hd), d),
+            "wk": norm_init((nl, d, hkv * hd), d),
+            "wv": norm_init((nl, d, hkv * hd), d),
+            "wo": norm_init((nl, hq * hd, d), d),
+            "mlp_norm": np.ones((nl, d), np.float32),
+            "w_gate": norm_init((nl, d, f), d),
+            "w_up": norm_init((nl, d, f), d),
+            "w_down": norm_init((nl, f, d), f),
+        },
+        "final_norm": np.ones((d,), np.float32),
+    }
+
+
+def build_base_checkpoint(model_dir: Path, model_config: str, seed: int = SEED) -> None:
     """Random-init base checkpoint in HF format (fp32 like the reference's
-    base load — ref: scripts/extend_llama3_2.py:166)."""
-    import jax
-    import jax.numpy as jnp
+    base load — ref: scripts/extend_llama3_2.py:166). numpy only: no JAX backend."""
     import numpy as np
     from safetensors.numpy import save_file
 
-    from ssi_tpu.checkpoint.convert import internal_to_hf
-    from ssi_tpu.models.configs import get_model_config
-    from ssi_tpu.models.llama3 import init_params
+    from ssi_jax.checkpoint.convert import internal_to_hf
+    from ssi_jax.models.configs import get_model_config
 
-    cfg = get_model_config(model_config).copy()  # n_dsus=0: base (unextended) 128256-vocab model
+    cfg = get_model_config(model_config).copy()  # n_dsus=0: base (unextended) model
     (model_dir / "original").mkdir(parents=True, exist_ok=True)
 
-    with jax.default_device(jax.local_devices(backend="cpu")[0]):
-        params = init_params(cfg, jax.random.key(SEED), dtype=jnp.float32)
-    hf_state = internal_to_hf(jax.device_get(params), cfg, xp=np)
+    hf_state = internal_to_hf(init_params_numpy(cfg, seed), cfg, xp=np)
     save_file(
-        {k: np.ascontiguousarray(np.asarray(v)) for k, v in hf_state.items()},
+        {k: np.ascontiguousarray(v) for k, v in hf_state.items()},
         str(model_dir / "model.safetensors"),
     )
+    bos = cfg.base_vocab_size_txt
     config = {
         "architectures": ["LlamaForCausalLM"],
         "model_type": "llama",
@@ -216,15 +246,15 @@ def build_base_checkpoint(model_dir: Path, model_config: str) -> None:
         "num_attention_heads": cfg.num_heads,
         "num_key_value_heads": cfg.num_kv_heads,
         "vocab_size": cfg.vocab_size,
-        "bos_token_id": 128_000,
-        "eos_token_id": 128_001,
-        "tie_word_embeddings": True,
+        "bos_token_id": bos,
+        "eos_token_id": bos + 1,
+        "tie_word_embeddings": cfg.tied_embeddings,
         "rope_theta": float(cfg.rope_base),
         "max_position_embeddings": cfg.max_seq_len,
     }
     (model_dir / "config.json").write_text(json.dumps(config, indent=2))
     (model_dir / "generation_config.json").write_text(
-        json.dumps({"bos_token_id": 128_000, "eos_token_id": 128_001}, indent=2)
+        json.dumps({"bos_token_id": bos, "eos_token_id": bos + 1}, indent=2)
     )
     (model_dir / "original" / "params.json").write_text(json.dumps({"vocab_size": cfg.vocab_size}, indent=2))
     LOGGER.info(f"base {model_config} checkpoint (random init, fp32) -> {model_dir}")
@@ -326,9 +356,9 @@ def assert_no_truncation(ext_dir: Path, data_dir: Path, max_seq_len: int,
     are read through the REAL composed config so this guard cannot drift from
     what scripts/train_sft.py will actually do.
     """
-    from ssi_tpu.config import compose
-    from ssi_tpu.data.sft import SFTDataset
-    from ssi_tpu.tokenizer import setup_llama3_tokenizer
+    from ssi_jax.config import compose
+    from ssi_jax.data.sft import SFTDataset
+    from ssi_jax.tokenizer import setup_llama3_tokenizer
 
     cfg = compose(str(REPO / "conf"), "sft",
                   ["data=sft/mls-hubert_large_ll60k-layer_22", *model_overrides, *data_overrides,
@@ -359,7 +389,7 @@ def assert_no_truncation(ext_dir: Path, data_dir: Path, max_seq_len: int,
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--workdir", type=Path, default=REPO / ".wer_drive")
-    ap.add_argument("--artifacts-dir", type=Path, default=REPO / "artifacts" / "wer_drive")
+    ap.add_argument("--artifacts-dir", type=Path, default=None, help="default: <workdir>/artifacts")
     ap.add_argument("--phases", default="assets,extend,train,generate,score,summary",
                     help="comma-separated subset of assets,extend,train,generate,score,summary")
     ap.add_argument("--n-dsus", type=int, default=5000)
@@ -370,7 +400,7 @@ def main() -> None:
         "llama3_2_1b runs the full-scale architecture but cannot from random init)",
     )
     # One visit per row: 256k rows / (batch 32 x accum 2) = 4000 steps = ONE
-    # epoch. Measured (this chip, 12k rows x 21 epochs): with repeated rows the
+    # epoch. Observed (12k rows x 21 epochs, a loss-curve finding): with repeated rows the
     # model MEMORIZES utterances instead of learning the codebook — train loss
     # 2.17 (below the 2.58 speech-blind floor) while dev loss sat AT the floor
     # (2.61). With every row distinct, utterance memorization cannot reduce
@@ -406,9 +436,11 @@ def main() -> None:
 
     phases = set(args.phases.split(","))
     W = args.workdir
+    if args.artifacts_dir is None:
+        args.artifacts_dir = W / "artifacts"
     W.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ)
-    env["SSI_TPU_HOME"] = str(W)
+    env["SSI_JAX_HOME"] = str(W)
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
     py = sys.executable
 
@@ -561,11 +593,15 @@ def main() -> None:
 
 
 def _device_desc() -> str:
+    """The card as ``nvidia-smi`` names it (name, power limit) — queried without
+    JAX, so this process never reserves the card its children use."""
     try:
-        import jax
-
-        return str(jax.devices())
-    except Exception:  # pragma: no cover
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip()
+        return out or "unknown"
+    except (OSError, subprocess.CalledProcessError):
         return "unknown"
 
 
